@@ -101,6 +101,21 @@ def main(argv=None) -> int:
     def on_dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
+    def sector_bytes(offsets) -> int:
+        """Bytes device memory must move to read the bytes at `offsets`
+        (byte offsets into one array): its distinct 32-byte sectors, each
+        read once."""
+        return int(torch.unique(offsets.reshape(-1) // 32).numel()) * 32
+
+    def table_bytes(codes, k: int, valid=None) -> int:
+        """Bytes of the (B, M, K) f32 ADC tables that the lookups
+        tables[b, m, codes[b, x, m]] reach, for codes (B, X, M) and an
+        optional (B, X) mask of the lookups made: the sectors they touch."""
+        b, _, m = codes.shape
+        off = ((torch.arange(b, device=dev)[:, None, None] * m
+                + torch.arange(m, device=dev)) * k + codes.long()) * 4
+        return sector_bytes(off if valid is None else off[valid])
+
     # ---- 1. card ---------------------------------------------------------
     card = nvidia_smi()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -257,7 +272,8 @@ def main(argv=None) -> int:
     lib_out = F.embedding_bag(i_adc, w_adc, mode="sum").T
     log(f"  pq_adc yardstick embedding_bag max |diff| "
         f"{float((lib_out - out).abs().max()):.3g}")
-    b_bytes = tables.numel() * 4 + ecodes.numel() + B * E * 4
+    b_bytes = (table_bytes(ecodes[None].expand(B, E, M), K) + ecodes.numel()
+               + B * E * 4)
     rows["pq_adc"] = dict(
         kernel=timed(lambda: pq_adc(tables, ecodes)),
         plain=timed(lambda: pq_adc_ref(tables, ecodes)),
@@ -273,7 +289,7 @@ def main(argv=None) -> int:
     i_row = (cand_codes.long() + torch.arange(M, device=dev) * K
              + torch.arange(B, device=dev)[:, None, None] * (M * K)
              ).reshape(B * R, M).contiguous()
-    b_bytes = tables.numel() * 4 + cand_codes.numel() + B * R * 4
+    b_bytes = table_bytes(cand_codes, K) + cand_codes.numel() + B * R * 4
     rows["pq_adc_rowwise"] = dict(
         kernel=timed(lambda: pq_adc_rowwise(tables, cand_codes)),
         plain=timed(lambda: pq_adc_rowwise_ref(tables, cand_codes)),
@@ -285,13 +301,23 @@ def main(argv=None) -> int:
     want = beam_hops_ref(adj, *pool, HOPS, tables=tables, codes=codes)
     errs["beam_hops"] = max(errs["beam_hops"], same("beam_hops main", got,
                                                     want))
+    # what this run's data needs: the adjacency rows of the picked nodes,
+    # the code rows of their valid neighbours and the table entries those
+    # codes reach, each sector once; the pools in and out; the traces
     tid = got[4]
     picked = tid[tid >= 0].long()
-    valid_nbrs = int((adj[picked] >= 0).sum())
+    nbrs = adj[tid.clamp_min(0).long()].long()               # (B, HOPS, R)
+    scored = ((tid >= 0)[:, :, None] & (nbrs >= 0)).reshape(B, HOPS * R)
+    valid_nbrs = int(scored.sum())
     hop_total = int(got[3].sum())
-    b_bytes = (tables.numel() * 4 + 2 * B * L * (4 + 4 + 1)
-               + B * (4 + 4 + 1) + B * HOPS * 8
-               + hop_total * R * 4 + valid_nbrs * M)
+    nbr_ids = nbrs.clamp_min(0).reshape(B, HOPS * R)[scored]
+    b_bytes = (table_bytes(codes[nbrs.clamp_min(0)].reshape(B, HOPS * R, M),
+                           K, scored)
+               + sector_bytes(nbr_ids[:, None] * M
+                              + torch.arange(M, device=dev))
+               + sector_bytes((picked[:, None] * R
+                               + torch.arange(R, device=dev)) * 4)
+               + 2 * B * L * (4 + 4 + 1) + B * (4 + 4 + 1) + B * HOPS * 8)
     rows["beam_hops"] = dict(
         kernel=timed(lambda: beam_hops(adj, *pool, HOPS, tables=tables,
                                        codes=codes), iters=30),
@@ -343,7 +369,7 @@ def main(argv=None) -> int:
     results, launches = {}, {}
     for backend in ("auto", "cuda", "ref"):
         eng = BatchedANNEngine(arrays, EngineConfig(
-            l=L, max_hops=HOPS, n_entry=NE, n_entry_cands=E, backend=backend),
+            l=L, max_hops=HOPS, n_entry=NE, backend=backend),
             device=dev)
         for c in counters:
             c.launches = 0
@@ -359,15 +385,22 @@ def main(argv=None) -> int:
         launches[backend] = {c.__name__: c.launches for c in counters}
         results[backend] = (np.concatenate(ids), np.concatenate(dists))
         med = statistics.median(times)
+        # the card's busy time per batch, profiled over all the batches
+        # again; the profiler slows the host, so the share is taken of the
+        # unprofiled median batch
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            eng.search_batch(queries[:B], 10)
+            for s in range(0, len(queries), B):
+                eng.search_batch(queries[s:s + B], 10)
             wall = time.perf_counter() - t0
-        busy = sum(a.self_device_time_total for a in prof.key_averages())
-        log(f"  {backend}: one profiled batch {wall * 1e3:.3f} ms wall, card "
-            f"busy {busy / 1e3:.3f} ms ({busy / 1e6 / wall:.1%}) in "
-            f"{sum(a.count for a in prof.key_averages())} kernel runs")
+        avgs = prof.key_averages()
+        busy = sum(a.self_device_time_total for a in avgs) / 1e3 / len(times)
+        log(f"  {backend}: card busy {busy:.4f} ms per batch (torch.profiler"
+            f" CUDA activity over all {len(times)} batches, "
+            f"{sum(a.count for a in avgs) / len(times):.1f} kernel runs per "
+            f"batch) = {busy / med:.2%} of the unprofiled per-batch median; "
+            f"profiled wall {wall * 1e3 / len(times):.3f} ms per batch")
         log(f"serve {backend}: recall@10 "
             f"{recall_at_k(results[backend][0], ds.gt, 10):.4f} | per-batch "
             f"median {med:.3f} ms (B={B}) | QPS {B / med * 1e3:.1f} "

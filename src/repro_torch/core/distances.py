@@ -2,25 +2,40 @@
 `repro.core.distances`).
 
 All distances are SQUARED Euclidean.  Functions take tensors and compute
-on their device.  Ground truth must be IEEE f32, so the matmul path turns
-TF32 off before every product (a float32 matmul on the card may otherwise
-keep only about three decimal digits).
+on their device.  Ground truth must be IEEE f32, so every product runs
+inside `f32_matmul`, which turns TF32 off for the product and restores the
+caller's setting after it (a float32 matmul on the card may otherwise keep
+only about three decimal digits).
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 
 
+@contextlib.contextmanager
+def f32_matmul():
+    """Run the block's float32 matmuls in IEEE f32 (TF32 off), then
+    restore the caller's `torch.backends.cuda.matmul.allow_tf32`."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 def pairwise_sq_l2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(na, d), (nb, d) -> (na, nb) squared L2 in the expanded form,
     clamped at 0: (|a|^2 + |b|^2) - 2 a.b, as the reference orders it."""
-    torch.backends.cuda.matmul.allow_tf32 = False
     a = a.float()
     b = b.float()
     a2 = (a * a).sum(1, keepdim=True)
     b2 = (b * b).sum(1)
-    d = torch.addmm(a2 + b2[None, :], a, b.T, alpha=-2.0)
+    with f32_matmul():
+        d = torch.addmm(a2 + b2[None, :], a, b.T, alpha=-2.0)
     return d.clamp_min_(0.0)
 
 

@@ -14,6 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .distances import f32_matmul
+
 
 @dataclasses.dataclass
 class PQCodec:
@@ -66,11 +68,11 @@ class PQCodec:
 def _encode(x: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
     """x (b, M*dsub), codebooks (M, K, dsub) -> (b, M) uint8: per subspace
     the argmin (first on ties) of |x|^2 - 2 x.c + |c|^2, in that order."""
-    torch.backends.cuda.matmul.allow_tf32 = False
     m, _, dsub = codebooks.shape
     xs = x.reshape(x.shape[0], m, dsub).transpose(0, 1)           # (M, b, ds)
-    d = ((xs * xs).sum(2, keepdim=True)
-         - 2 * torch.bmm(xs, codebooks.transpose(1, 2))
+    with f32_matmul():
+        xc = torch.bmm(xs, codebooks.transpose(1, 2))
+    d = ((xs * xs).sum(2, keepdim=True) - 2 * xc
          + (codebooks * codebooks).sum(2)[:, None, :])             # (M, b, K)
     return torch.argmin(d, 2).T.to(torch.uint8).contiguous()
 
@@ -92,13 +94,15 @@ def _kmeans(data: torch.Tensor, init: torch.Tensor, iters: int):
     k = cent.shape[1]
     d2 = (data * data).sum(2, keepdim=True)
     for _ in range(iters):
-        d = (d2 - 2 * torch.bmm(data, cent.transpose(1, 2))
-             + (cent * cent).sum(2)[:, None, :])                   # (M, n, K)
+        with f32_matmul():
+            dc = torch.bmm(data, cent.transpose(1, 2))
+        d = d2 - 2 * dc + (cent * cent).sum(2)[:, None, :]         # (M, n, K)
         assign = torch.argmin(d, 2)
         onehot = torch.zeros(m, n, k, dtype=torch.float32, device=data.device)
         onehot.scatter_(2, assign[:, :, None], 1.0)
         counts = onehot.sum(1)                                     # (M, K)
-        sums = torch.bmm(onehot.transpose(1, 2), data)             # (M, K, ds)
+        with f32_matmul():
+            sums = torch.bmm(onehot.transpose(1, 2), data)         # (M, K, ds)
         cent = torch.where(counts[:, :, None] > 0,
                            sums / counts.clamp_min(1.0)[:, :, None], cent)
     return cent
@@ -107,7 +111,6 @@ def _kmeans(data: torch.Tensor, init: torch.Tensor, iters: int):
 def train_pq(x: torch.Tensor, m: int = 16, k: int = 256, iters: int = 12,
              sample: int = 65536, seed: int = 0) -> PQCodec:
     """Train a PQ codec on (a sample of) x on x's device; d % m == 0."""
-    torch.backends.cuda.matmul.allow_tf32 = False
     n, d = x.shape
     if d % m != 0:
         raise ValueError(f"d={d} not divisible by M={m}")

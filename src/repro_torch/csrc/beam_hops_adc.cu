@@ -216,9 +216,9 @@ extern "C" int beam_hops_adc_launch(
     const int32_t* pool_ids, const float* pool_d, const uint8_t* pool_exp,
     int32_t* out_ids, float* out_d, uint8_t* out_exp, int32_t* out_hops,
     int32_t* trace_ids, float* trace_d, int32_t* next_id, uint8_t* done, int b,
-    int l, int r, int m, int k, int max_hops, int device, void* stream) {
+    int l, int r, int m, int k, int max_hops, void* stream) {
   const size_t smem = beam_hops_adc_smem_bytes(l, r, m, k);
-  cudaError_t err = prepare((const void*)beam_hops_adc_kernel, smem, device);
+  cudaError_t err = prepare((const void*)beam_hops_adc_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int width = l > r ? l : r;
   const int threads = (width + 31) / 32 * 32;

@@ -2,14 +2,12 @@
 #pragma once
 #include <cuda_runtime.h>
 
-// Make `device` (the tensors' device) current for this thread, and opt the
-// kernel `fn` in to `smem` bytes of dynamic shared memory where that is
-// above the 48 KB every kernel may use without asking.
-static inline cudaError_t prepare(const void* fn, size_t smem, int device) {
-  int cur = -1;
-  cudaError_t err = cudaGetDevice(&cur);
-  if (err == cudaSuccess && cur != device) err = cudaSetDevice(device);
-  if (err != cudaSuccess || smem <= 48 * 1024) return err;
+// Opt the kernel `fn` in to `smem` bytes of dynamic shared memory where that
+// is above the 48 KB every kernel may use without asking.  The caller has
+// made the tensors' device current (the Python wrappers hold torch's device
+// guard around each launch), so nothing here changes the current device.
+static inline cudaError_t prepare(const void* fn, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
 }

@@ -83,9 +83,9 @@ extern "C" const char* kernel_error_string(int err) {
 
 extern "C" int pq_adc_launch(const float* tables, const uint8_t* codes,
                              float* out, int b, int n, int m, int k,
-                             int device, void* stream) {
+                             void* stream) {
   const size_t smem = (size_t)m * k * sizeof(float);
-  cudaError_t err = prepare((const void*)pq_adc_kernel, smem, device);
+  cudaError_t err = prepare((const void*)pq_adc_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   int gy = (n + kThreads - 1) / kThreads;
   gy = gy < 1 ? 1 : (gy > 65535 ? 65535 : gy);
@@ -96,9 +96,9 @@ extern "C" int pq_adc_launch(const float* tables, const uint8_t* codes,
 
 extern "C" int pq_adc_rowwise_launch(const float* tables, const uint8_t* cand,
                                      float* out, int b, int r, int m, int k,
-                                     int device, void* stream) {
+                                     void* stream) {
   const size_t smem = (size_t)m * k * sizeof(float);
-  cudaError_t err = prepare((const void*)pq_adc_rowwise_kernel, smem, device);
+  cudaError_t err = prepare((const void*)pq_adc_rowwise_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   pq_adc_rowwise_kernel<<<b, kThreads, smem, (cudaStream_t)stream>>>(
       tables, cand, out, r, m, k);

@@ -5,8 +5,9 @@ At first use, every source in `csrc/` is compiled for `sm_90a` by its own
 shared library with a plain C interface under `<repo>/build/kernels/`
 (git-ignored).  The library's name carries a hash of the sources and the
 flags, so a changed source rebuilds and an unchanged one loads at once.
-The wrappers (`kernels/*/ops.py`) launch on PyTorch's current stream and
-raise on any nonzero `cudaGetLastError()`; nothing falls back to the plain
+The wrappers (`kernels/*/ops.py`) launch through `launch`: on PyTorch's
+current stream of the tensors' device, under torch's device guard, raising
+on any nonzero `cudaGetLastError()`; nothing falls back to the plain
 versions when a build or a launch fails.
 """
 from __future__ import annotations
@@ -34,9 +35,9 @@ BACKENDS = ("auto", "cuda", "ref")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "pq_adc_launch": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "pq_adc_rowwise_launch": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "beam_hops_adc_launch": (_I, [_P] * 14 + [_I] * 7 + [_P]),
+    "pq_adc_launch": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "pq_adc_rowwise_launch": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "beam_hops_adc_launch": (_I, [_P] * 14 + [_I] * 6 + [_P]),
     "beam_hops_adc_smem_bytes": (ctypes.c_size_t, [_I] * 4),
     "kernel_error_string": (ctypes.c_char_p, [_I]),
 }
@@ -137,11 +138,13 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} must be contiguous")
 
 
-def stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def raise_on(err: int, name: str) -> None:
+def launch(name: str, entry: str, device: torch.device, *args) -> None:
+    """Call the C entry point `entry` with `args` and the current stream of
+    `device`, with `device` made current for the call and the caller's
+    device restored after it; raise if the launch failed."""
+    with torch.cuda.device(device):
+        err = getattr(library(), entry)(
+            *args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         msg = library().kernel_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")

@@ -64,12 +64,11 @@ def beam_hops(adj, pool_ids, pool_d, pool_exp, max_hops: int, *, tables,
            torch.empty(b, dtype=i32, device=dev),
            torch.empty(b, dtype=torch.bool, device=dev))
     if b:
-        err = lib.beam_hops_adc_launch(
-            adj.data_ptr(), codes.data_ptr(), tables.data_ptr(),
-            pool_ids.data_ptr(), pool_d.data_ptr(), pool_exp.data_ptr(),
-            *(o.data_ptr() for o in out), b, l, r, m, k, h, dev.index,
-            _build.stream(dev))
-        _build.raise_on(err, "beam_hops")
+        _build.launch(
+            "beam_hops", "beam_hops_adc_launch", dev, adj.data_ptr(),
+            codes.data_ptr(), tables.data_ptr(), pool_ids.data_ptr(),
+            pool_d.data_ptr(), pool_exp.data_ptr(),
+            *(o.data_ptr() for o in out), b, l, r, m, k, h)
         beam_hops.launches += 1
     return out
 

@@ -40,10 +40,8 @@ def pq_adc(tables: torch.Tensor, codes: torch.Tensor,
     _check_table(tables)
     out = torch.empty((b, n), dtype=torch.float32, device=dev)
     if b and n:
-        err = _build.library().pq_adc_launch(
-            tables.data_ptr(), codes.data_ptr(), out.data_ptr(), b, n, m, k,
-            dev.index, _build.stream(dev))
-        _build.raise_on(err, "pq_adc")
+        _build.launch("pq_adc", "pq_adc_launch", dev, tables.data_ptr(),
+                      codes.data_ptr(), out.data_ptr(), b, n, m, k)
         pq_adc.launches += 1
     return out
 
@@ -66,10 +64,9 @@ def pq_adc_rowwise(tables: torch.Tensor, cand_codes: torch.Tensor,
     _check_table(tables)
     out = torch.empty((b, r), dtype=torch.float32, device=dev)
     if b and r:
-        err = _build.library().pq_adc_rowwise_launch(
-            tables.data_ptr(), cand_codes.data_ptr(), out.data_ptr(), b, r,
-            m, k, dev.index, _build.stream(dev))
-        _build.raise_on(err, "pq_adc_rowwise")
+        _build.launch("pq_adc_rowwise", "pq_adc_rowwise_launch", dev,
+                      tables.data_ptr(), cand_codes.data_ptr(),
+                      out.data_ptr(), b, r, m, k)
         pq_adc_rowwise.launches += 1
     return out
 

@@ -67,9 +67,6 @@ class EngineConfig:
     max_hops: int = 32        # fixed beam-expansion iterations
     n_entry: int = 4          # entry seeds per query
     rerank: Optional[int] = None   # pool prefix reranked exactly (None = l)
-    # entry candidate pool scored by pq_adc: the size the arrays dict is
-    # cut to (`core.engine.load_batch_arrays(path, n_entry_cands)`)
-    n_entry_cands: int = 256
     # kernel backend, reaching entry scoring AND the hop loop:
     #   "auto"       "fused" on a CUDA device, "ref" on the CPU
     #   "fused"      the fused hop-loop kernel; the pq_adc kernel for entries

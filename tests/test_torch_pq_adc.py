@@ -164,6 +164,28 @@ def test_distances_match_reference():
                                                                wi, 5)
 
 
+@pytest.mark.parametrize("setting", (True, False))
+def test_f32_matmul_restores_the_callers_tf32_setting(setting):
+    """The products run with TF32 off, and the caller's setting is back
+    after every distance and PQ function, even when the block raises."""
+    flag = torch.backends.cuda.matmul
+    before = flag.allow_tf32
+    x = T(RNG.normal(size=(300, 16)).astype(np.float32))
+    try:
+        flag.allow_tf32 = setting
+        with td.f32_matmul():
+            assert flag.allow_tf32 is False
+        td.pairwise_sq_l2(x[:5], x)
+        td.knn_graph(x, 4)
+        train_pq(x, m=4, k=8, iters=2).encode(x)
+        assert flag.allow_tf32 is setting
+        with pytest.raises(RuntimeError), td.f32_matmul():
+            raise RuntimeError
+        assert flag.allow_tf32 is setting
+    finally:
+        flag.allow_tf32 = before
+
+
 def test_exact_knn_ties_keep_lower_index():
     """Duplicated points tie exactly; the lower id comes first, as with
     `jax.lax.top_k`."""
