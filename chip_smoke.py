@@ -1,28 +1,42 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's batched BAMG query path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's batched BAMG query and construction paths
+on one NVIDIA GPU.
 
 Run from the root of a checkout, with one card:
 
-    python3 chip_smoke.py            # SIFT1M scale: N = 1,000,000, d = 128
+    python3 chip_smoke.py         # serve at N = 1,000,000, build at 100,000
+    python3 chip_smoke.py --n 100000 --build-n 20000    # a quicker check
 
 Phases, in order; any failed check raises and the script exits nonzero:
 
 1. card: name and power limit (nvidia-smi), TF32 off for matmul and cuDNN;
 2. build: nvcc compiles the kernels in `src/repro_torch/csrc/`;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
-   at the main path's shapes and on ragged cases (odd batch sizes, -1
-   adjacency pads, rows that run out of frontier, integer-valued tables
-   that force (dist, id) ties, tables above 48 KB of shared memory); times
-   by CUDA events beside the plain version, a one-call PyTorch yardstick
-   where one exists, and the least time the card could take (`bound_ms`);
-4. main path: `paper_dataset("sift-like")` with exact top-100 ground truth,
-   an exact kNN graph at BAMG's serving width R = 32 (the BAMG build is not
-   ported yet), PQ trained and encoded on the card, and 1,024 queries
-   served in batches of 64 under the backends "auto" (fused hop kernel),
-   "cuda" (hop loop with the rowwise kernel) and "ref" (plain PyTorch).
-   The three must agree, the launch counters must show the kernels ran,
-   every returned distance must be the exact one of its id, and
-   tombstoned ids must never come back.
+   at the main paths' shapes and on ragged cases (odd batch sizes, -1
+   adjacency pads, rows that run out of frontier, integer-valued tables and
+   vectors that force (dist, id) ties, tables above 48 KB of shared memory,
+   D = 960 query rows); times by CUDA events beside the plain version, a
+   one-call PyTorch yardstick where one exists, and the least time the card
+   could take (`bound_ms`);
+4. query path: `paper_dataset("sift-like")` at `--n` with exact top-100
+   ground truth, an exact kNN graph at BAMG's serving width R = 32, PQ
+   trained and encoded on the card, and 1,024 queries served in batches of
+   64 under the backends "auto" (fused hop kernel), "cuda" (hop loop with
+   the rowwise kernel) and "ref" (plain PyTorch).  The three must agree,
+   the launch counters must show the kernels ran, every returned distance
+   must be the exact one of its id, and tombstoned ids must never come
+   back;
+5. construction path: a BAMG built on the card at `--build-n` from
+   `paper_dataset("sift-like")` with `BAMGParams`' defaults -- NSG through
+   `GraphBuilder()`'s defaults, `BuildConfig(backend="batched",
+   frontier_backend="fused")` (the exact-L2 hop kernel, one launch per 256
+   nodes), BNF blocks, the Alg. 2 refine, PQ, the nav graph,
+   `batch_arrays` -- then served under "auto" and "ref", beside an exact
+   kNN graph of the same corpus.  On the build's own kNN graph and entry
+   the kernel's frontier pools must equal the plain version's, and one
+   profiled frontier run splits the stage into the kernel's device time,
+   other device time and the host; the two backends must agree, and every
+   stage's time is logged.
 
 The last lines are the card's nvidia-smi line, one JSON object with every
 kernel's numbers, and `{"ok": true, "device": {...}}`.  The script exits
@@ -67,7 +81,11 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
-                    help="corpus size of the main path (default: SIFT1M)")
+                    help="corpus size of the query path (default: SIFT1M)")
+    ap.add_argument("--build-n", type=int, default=100_000,
+                    help="corpus size of the construction path (default: "
+                         "a tenth of SIFT1M; the host-Python refine and nav "
+                         "graph grow faster than N)")
     args = ap.parse_args(argv)
 
     import torch
@@ -84,13 +102,20 @@ def main(argv=None) -> int:
     import numpy as np
     import torch.nn.functional as F
 
+    from repro_torch.build import BuildConfig, GraphBuilder
+    from repro_torch.build.frontier import frontier_arrays, frontier_pools
     from repro_torch.build.pool import pool_merge
-    from repro_torch.core.distances import knn_graph, recall_at_k
-    from repro_torch.core.engine import _pick_pq_m
+    from repro_torch.core.block_assign import intra_edge_fraction
+    from repro_torch.core.distances import knn_graph, medoid, recall_at_k
+    from repro_torch.core.engine import _pick_pq_m, batch_arrays
+    from repro_torch.core.graph_build import degree_stats
+    from repro_torch.core.navgraph import build_navgraph
     from repro_torch.core.pq import train_pq
+    from repro_torch.core.storage import max_capacity_for
     from repro_torch.data.synthetic import paper_dataset
     from repro_torch.kernels import _build
     from repro_torch.kernels.beam_fused import beam_hops, beam_hops_ref
+    from repro_torch.kernels.beam_fused.ref import l2_score, sq_norms
     from repro_torch.kernels.pq_adc import (pq_adc, pq_adc_ref,
                                             pq_adc_rowwise, pq_adc_rowwise_ref)
     from repro_torch.serve import BatchedANNEngine, EngineConfig
@@ -115,6 +140,19 @@ def main(argv=None) -> int:
         off = ((torch.arange(b, device=dev)[:, None, None] * m
                 + torch.arange(m, device=dev)) * k + codes.long()) * 4
         return sector_bytes(off if valid is None else off[valid])
+
+    # each kernel's launch counter: (wrapper, attribute)
+    counters = {"pq_adc": (pq_adc, "launches"),
+                "pq_adc_rowwise": (pq_adc_rowwise, "launches"),
+                "beam_hops": (beam_hops, "launches"),
+                "beam_hops_l2": (beam_hops, "l2_launches")}
+
+    def reset_counts():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def read_counts():
+        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
 
     # ---- 1. card ---------------------------------------------------------
     card = nvidia_smi()
@@ -172,13 +210,17 @@ def main(argv=None) -> int:
         dms, names = device_ms(fn, dev_iters)
         return dict(call=call_ms(fn, iters), device=dms, names=names)
 
-    def same(name, got, want):
+    def same(name, got, want, exact=False):
         """Integer outputs equal; float outputs within rtol = atol = 1e-5
         (the plain versions keep the kernels' summation order, so they
-        are expected bitwise equal; the tolerance is the repo's bar)."""
+        are expected bitwise equal; the tolerance is the repo's bar), or
+        bitwise where `exact`."""
         err = 0.0
         for i, (g, w) in enumerate(zip(got, want)):
-            if g.dtype.is_floating_point:
+            if g.dtype.is_floating_point and exact:
+                if not torch.equal(g, w):
+                    raise AssertionError(f"{name}[{i}]: outputs differ")
+            elif g.dtype.is_floating_point:
                 torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5,
                                            msg=lambda m: f"{name}[{i}]: {m}")
                 fin = torch.isfinite(w)
@@ -211,9 +253,19 @@ def main(argv=None) -> int:
         adj[torch.rand(n, device=dev, generator=gen) < dead] = -1
         return adj
 
+    def l2_pool(x, q, seeds, l):
+        """A pool seeded by exact L2 with the (B, S) seed ids."""
+        b = q.shape[0]
+        return pool_merge(
+            torch.full((b, l), -1, dtype=torch.int32, device=dev),
+            torch.full((b, l), torch.inf, device=dev),
+            torch.zeros((b, l), dtype=torch.bool, device=dev),
+            seeds, l2_score(x, sq_norms(x), q, sq_norms(q), seeds), l)
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    errs = {"pq_adc": 0.0, "pq_adc_rowwise": 0.0, "beam_hops": 0.0}
+    errs = {"pq_adc": 0.0, "pq_adc_rowwise": 0.0, "beam_hops": 0.0,
+            "beam_hops_l2": 0.0}
 
     # ragged cases: odd B, N and R, integer tables, >48 KB tables (M = 64)
     for b, n, m, k, integer in ((37, 1000, 8, 64, True),
@@ -250,6 +302,33 @@ def main(argv=None) -> int:
         log(f"kernel check beam_hops B={b} R={r} L={l} M={m} hops={hops}: ok "
             f"(done rows {int(got[7].sum())}/{b}, hops {got[3].min().item()}"
             f"..{got[3].max().item()})")
+    # exact-L2 beam: the same ragged shapes, integer vectors (ties), a
+    # GIST-wide D = 960 query row, and the limits L=1024, R=256
+    for b, n, r, d, l, hops, integer in (
+            (37, 5001, 23, 8, 48, 40, True),
+            (19, 301, 15, 8, 301, 400, True),
+            (7, 3000, 32, 960, 96, 30, False),
+            (8, 20000, 256, 16, 1024, 8, False)):
+        adj = random_graph(n, r, pad=0.2, dead=0.05)
+        if integer:
+            x = torch.randint(-3, 4, (n + b, d), device=dev, generator=gen)
+        else:
+            x = torch.randn((n + b, d), device=dev, generator=gen)
+        x, q = x[:n].float().contiguous(), x[n:].float().contiguous()
+        seeds = torch.arange(0, n, max(1, n // 64), device=dev,
+                             dtype=torch.int32)[None, :].expand(b, -1)
+        pool = l2_pool(x, q, seeds, l)
+        pool[0][::5] = -1                        # rows with no seed at all
+        pool[1][::5] = torch.inf
+        kw = dict(x=x, n2=sq_norms(x), queries=q)
+        got = beam_hops(adj, *pool, hops, **kw)
+        want = beam_hops_ref(adj, *pool, hops, **kw)
+        errs["beam_hops_l2"] = max(errs["beam_hops_l2"], same(
+            f"beam_hops_l2 B={b} N={n} R={r} D={d} L={l} hops={hops}", got,
+            want, exact=True))
+        log(f"kernel check beam_hops_l2 B={b} R={r} L={l} D={d} hops={hops}:"
+            f" ok (done rows {int(got[7].sum())}/{b}, hops "
+            f"{got[3].min().item()}..{got[3].max().item()})")
     torch.cuda.synchronize()
     log("kernel checks (ragged): ok")
 
@@ -328,6 +407,50 @@ def main(argv=None) -> int:
     log(f"  beam_hops main: {hop_total} hops over {B} rows, "
         f"{valid_nbrs} valid neighbours scored")
 
+    # the construction frontier's shapes (frontier_pools under "fused"):
+    # B=256 build nodes as queries, L = ef + ef//2 = 96, 66 hops, one
+    # shared entry (the medoid), on a random R=32, d=128 graph of --n nodes
+    B2, R2, D2, L2, HOPS2 = 256, 32, 128, 96, 66
+    del adj
+    adj = random_graph(n_main, R2, pad=0.1, dead=0.0)
+    x = torch.randn((n_main, D2), device=dev, generator=gen)
+    n2 = sq_norms(x)
+    q = x[torch.randperm(n_main, device=dev, generator=gen)[:B2]]
+    med = medoid(x)
+    seeds = torch.full((B2, 1), med, dtype=torch.int32, device=dev)
+    pool = l2_pool(x, q, seeds, L2)
+    kw = dict(x=x, n2=n2, queries=q)
+    got = beam_hops(adj, *pool, HOPS2, **kw)
+    want = beam_hops_ref(adj, *pool, HOPS2, **kw)
+    errs["beam_hops_l2"] = max(errs["beam_hops_l2"], same(
+        "beam_hops_l2 main", got, want, exact=True))
+    # what this run's data needs: the adjacency rows of the picked nodes,
+    # the vector rows (D*4 = 512 bytes, 16 whole sectors each) and norms of
+    # their valid neighbours, each sector once; the queries and their
+    # norms; the pools in and out; the traces
+    tid = got[4]
+    picked = tid[tid >= 0].long()
+    nbrs = adj[tid.clamp_min(0).long()].long()               # (B, HOPS, R)
+    scored = ((tid >= 0)[:, :, None] & (nbrs >= 0)).reshape(B2, HOPS2 * R2)
+    valid_l2 = int(scored.sum())
+    nbr_ids = nbrs.reshape(B2, HOPS2 * R2)[scored]
+    b_bytes = (int(torch.unique(nbr_ids).numel()) * D2 * 4
+               + sector_bytes(nbr_ids * 4)
+               + sector_bytes((picked[:, None] * R2
+                               + torch.arange(R2, device=dev)) * 4)
+               + B2 * (D2 + 1) * 4
+               + 2 * B2 * L2 * (4 + 4 + 1) + B2 * (4 + 4 + 1)
+               + B2 * HOPS2 * 8)
+    rows["beam_hops_l2"] = dict(
+        kernel=timed(lambda: beam_hops(adj, *pool, HOPS2, **kw), iters=30),
+        plain=timed(lambda: beam_hops_ref(adj, *pool, HOPS2, **kw), iters=3,
+                    dev_iters=2),
+        library=None,
+        bound=bound(b_bytes, valid_l2 * 2 * D2))
+    log(f"  beam_hops_l2 main: {int(got[3].sum())} hops over {B2} rows, "
+        f"{valid_l2} valid neighbours scored")
+    del x, n2, q
+
     def fmt(t):
         if t is None:
             return "none"
@@ -340,7 +463,7 @@ def main(argv=None) -> int:
             f"{row['bound'][0] * 1e3:.3f} us ({row['bound'][1]}) | max|err| "
             f"{errs[name]:.3g} | {card}")
         log(f"  device kernels seen: {row['kernel']['names']}")
-    del adj, codes, nb, cand_codes, pool, got, want
+    del adj, codes, nb, cand_codes, pool, got, want, kw
     torch.cuda.empty_cache()
 
     # ---- 4. main path at full size ----------------------------------------
@@ -365,14 +488,12 @@ def main(argv=None) -> int:
     arrays = dict(x=x, adj=adj, codes=codes, codebooks=codec.codebooks,
                   entry_cands=np.linspace(0, n_main - 1, E, dtype=np.int64))
     queries = ds.queries
-    counters = (pq_adc, pq_adc_rowwise, beam_hops)
     results, launches = {}, {}
     for backend in ("auto", "cuda", "ref"):
         eng = BatchedANNEngine(arrays, EngineConfig(
             l=L, max_hops=HOPS, n_entry=NE, backend=backend),
             device=dev)
-        for c in counters:
-            c.launches = 0
+        reset_counts()
         ids, dists, times = [], [], []
         t_all = time.perf_counter()
         for s in range(0, len(queries), B):
@@ -382,7 +503,7 @@ def main(argv=None) -> int:
             ids.append(i)
             dists.append(d)
         t_all = time.perf_counter() - t_all
-        launches[backend] = {c.__name__: c.launches for c in counters}
+        launches[backend] = read_counts()
         results[backend] = (np.concatenate(ids), np.concatenate(dists))
         med = statistics.median(times)
         # the card's busy time per batch, profiled over all the batches
@@ -448,6 +569,135 @@ def main(argv=None) -> int:
     log(f"tombstones: {len(dead)} ids masked, none returned | peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB | "
         f"resident index {eng.memory_bytes() / 2 ** 30:.3f} GiB")
+    del eng, arrays, x, adj, codes, codec, ds, exact
+    torch.cuda.empty_cache()
+
+    # ---- 5. construction path: build a BAMG on the card, serve it ----------
+    n_build = args.build_n
+    t0 = time.perf_counter()
+    ds = paper_dataset("sift-like", n=n_build, nq=1024, seed=SEED, device=dev)
+    t_data = time.perf_counter() - t0
+    xb, queries = ds.base, ds.queries
+    # BAMGParams' defaults: alpha 3, beta 1.05, R 32, l_build 64, knn_k 32,
+    # gamma 256, the largest block capacity for R at 4 KB
+    R5, capacity = 32, max_capacity_for(32)
+    builder = GraphBuilder(device=dev)
+    if builder.config != BuildConfig(backend="batched",
+                                     frontier_backend="fused"):
+        raise AssertionError(f"GraphBuilder's default is {builder.config}")
+    reset_counts()
+    t0 = time.perf_counter()
+    graph = builder.build_bamg(xb, capacity, alpha=3, beta=1.05, r=R5,
+                               l_build=64, knn_k=32, seed=SEED, max_degree=R5)
+    t_graph = time.perf_counter() - t0
+    build_launches = read_counts()
+    chunks = -(-n_build // 256)
+    if build_launches != {"pq_adc": 0, "pq_adc_rowwise": 0, "beam_hops": 0,
+                          "beam_hops_l2": chunks}:
+        raise AssertionError(f"build launches {build_launches}: expected "
+                             f"beam_hops_l2 = ceil(N / 256) = {chunks} and "
+                             f"no other kernel")
+    xt = on_dev(xb)
+    t0 = time.perf_counter()
+    codec = train_pq(xt, m=_pick_pq_m(xt.shape[1]), k=K, seed=SEED)
+    codes = codec.encode(xt)
+    torch.cuda.synchronize()
+    t_pq = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nav = build_navgraph(xb, graph, alpha=3, beta=1.05, gamma=256,
+                         capacity=capacity, seed=SEED, device=dev)
+    t_nav = time.perf_counter() - t0
+    arrays = batch_arrays(xb, graph, codes, codec.codebooks, nav)
+    stages = dict(builder.timings, pq=t_pq, nav=t_nav)
+    log(f"build: N={n_build} d={xb.shape[1]} R={R5} capacity={capacity} | "
+        f"data+gt {t_data:.2f} s | graph {t_graph:.2f} s | stages (s): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+        + f" | beam_hops_l2 launches {build_launches['beam_hops_l2']} | "
+        f"{card}")
+    deg = degree_stats(graph.adj, graph.blocks)
+    log(f"  BAMG: mean out-degree {deg['total']:.3f} (intra {deg['intra']:.3f}"
+        f", cross {deg['cross']:.3f}), intra-block edge share "
+        f"{intra_edge_fraction(graph.adj, graph.blocks):.4f}, "
+        f"{graph.members.shape[0]} blocks, nav layers "
+        f"{[len(layer.vids) for layer in nav.layers]}, entry cands "
+        f"{len(arrays['entry_cands'])}")
+
+    # the frontier stage again, on the build's own kNN graph and entry:
+    # timed over every node, the kernel's pools against the plain
+    # version's on every 8th node, then one profiled run over every node
+    f_arrays = frontier_arrays(xb, builder.knn, dev)
+    def frontier(nodes, backend):
+        return frontier_pools(xb, builder.knn, [graph.entry], nodes, ef=64,
+                              device_arrays=f_arrays, backend=backend)
+    nodes = np.arange(n_build)
+    t0 = time.perf_counter()
+    frontier(nodes, "fused")
+    t_front = time.perf_counter() - t0
+    got = frontier(nodes[::8], "fused")
+    want = frontier(nodes[::8], "fused_ref")
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        frontier(nodes, "fused")
+        torch.cuda.synchronize()
+    dev_us = {a.key: a.self_device_time_total for a in prof.key_averages()
+              if a.self_device_time_total > 0}
+    l2_ms = sum(v for k, v in dev_us.items() if "beam_hops_l2" in k) / 1e3
+    other_ms = sum(dev_us.values()) / 1e3 - l2_ms
+    n_other = sum("beam_hops_l2" not in k for k in dev_us)
+    split = (f"L2 kernel {l2_ms:.3f} ms device over {chunks} launches "
+             f"({l2_ms / chunks:.4f} ms each), other device {other_ms:.3f} "
+             f"ms ({n_other} kernel kinds), host and idle "
+             f"{t_front * 1e3 - l2_ms - other_ms:.1f} ms" if dev_us else
+             "the profiler saw no device time")
+    log(f"  frontier on the build's kNN graph and entry: fused == fused_ref "
+        f"on {len(want[0])} of {n_build} nodes (ids and dists bitwise) | "
+        f"stage rerun {t_front * 1e3:.1f} ms wall | {split} | {card}")
+
+    # serve the BAMG, then the exact kNN graph of the same corpus
+    served = {}
+    stand_in = dict(arrays, adj=knn_graph(xt, R5),
+                    entry_cands=np.linspace(0, n_build - 1, E, dtype=np.int64))
+    for name, arr, backend in (("bamg", arrays, "auto"), ("bamg", arrays, "ref"),
+                               ("knn", stand_in, "auto")):
+        eng = BatchedANNEngine(arr, EngineConfig(
+            l=L, max_hops=HOPS, n_entry=NE, backend=backend), device=dev)
+        reset_counts()
+        ids, dists, times = [], [], []
+        for s0 in range(0, len(queries), B):
+            t0 = time.perf_counter()
+            i, d = eng.search_batch(queries[s0:s0 + B], 10)
+            times.append((time.perf_counter() - t0) * 1e3)
+            ids.append(i)
+            dists.append(d)
+        served[name, backend] = (np.concatenate(ids), np.concatenate(dists))
+        med_ms = statistics.median(times)
+        log(f"serve {name} {backend}: recall@10 "
+            f"{recall_at_k(served[name, backend][0], ds.gt, 10):.4f} | "
+            f"per-batch median {med_ms:.3f} ms (B={B}) | QPS "
+            f"{B / med_ms * 1e3:.1f} | launches {read_counts()} | {card}")
+        if backend == "auto" and read_counts()["beam_hops"] != len(times):
+            raise AssertionError(f"{name}: beam_hops launched "
+                                 f"{read_counts()['beam_hops']} times")
+    ids, dists = served["bamg", "ref"]
+    np.testing.assert_array_equal(served["bamg", "auto"][0], ids)
+    np.testing.assert_allclose(served["bamg", "auto"][1], dists, rtol=1e-5,
+                               atol=1e-5)
+    if (ids < 0).any():
+        raise AssertionError("a query returned fewer than 10 ids")
+    exact = ((xt[on_dev(ids)] - on_dev(queries)[:, None, :]) ** 2).sum(-1)
+    torch.testing.assert_close(on_dev(dists), exact, rtol=1e-4, atol=0.0)
+    eng = BatchedANNEngine(arrays, EngineConfig(l=L, max_hops=HOPS,
+                                                n_entry=NE), device=dev)
+    dead = set(ids[:B, :3].ravel().tolist())
+    eng.set_tombstones(sorted(dead))
+    if set(eng.search_batch(queries[:B], 10)[0].ravel().tolist()) & dead:
+        raise AssertionError("BAMG: a tombstoned id came back")
+    log("construction path: auto == ref on the built BAMG (ids equal, dists "
+        f"within 1e-5, exact to 1e-4 relative); {len(dead)} tombstoned ids "
+        "never returned")
 
     # ---- result lines -------------------------------------------------------
     meta = {
@@ -457,7 +707,16 @@ def main(argv=None) -> int:
                            "src/repro/kernels/pq_adc/kernel.py:61"),
         "beam_hops": ("src/repro_torch/csrc/beam_hops_adc.cu",
                       "src/repro/kernels/beam_fused/kernel.py:442"),
+        "beam_hops_l2": ("src/repro_torch/csrc/beam_hops_l2.cu",
+                         "src/repro/kernels/beam_fused/kernel.py:472"),
     }
+    also = {"beam_hops": "src/repro/kernels/beam_fused/kernel.py:511",
+            "beam_hops_l2": "src/repro/kernels/beam_fused/kernel.py:546"}
+    # launches on the main paths: the query path's auto and cuda runs, and
+    # the construction path's build for the exact-L2 kernel
+    path_launches = {k: launches["auto"][k] + launches["cuda"][k]
+                     for k in counters}
+    path_launches["beam_hops_l2"] = build_launches["beam_hops_l2"]
     def on_card(t):
         if t is None:
             return None
@@ -473,7 +732,7 @@ def main(argv=None) -> int:
         entry = {
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1],
-            "launches": launches["auto"][name] + launches["cuda"][name],
+            "launches": path_launches[name],
             "max_abs_err": errs[name], "ms": on_card(row["kernel"]),
             "plain_ms": on_card(row["plain"]), "bound_ms": row["bound"][0],
             "bound_by": row["bound"][1], "library_ms": on_card(row["library"]),
@@ -482,8 +741,8 @@ def main(argv=None) -> int:
             "library_call_ms": (None if row["library"] is None
                                 else row["library"]["call"]),
             "timing": timing}
-        if name == "beam_hops":
-            entry["also_replaces"] = "src/repro/kernels/beam_fused/kernel.py:511"
+        if name in also:
+            entry["also_replaces"] = also[name]
         kernels.append(entry)
     log(card)
     log(json.dumps({"kernels": kernels}))

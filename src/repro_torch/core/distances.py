@@ -41,10 +41,18 @@ def pairwise_sq_l2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _smallest_k(d: torch.Tensor, k: int):
     """The k smallest entries of each row of `d`, ascending by (dist,
-    index) -- `jax.lax.top_k(-d, k)`'s order, lower index first on ties.
-    `torch.topk` promises no tie order, so the kept k are re-sorted
-    stably: first by index, then by distance."""
+    index) -- `jax.lax.top_k(-d, k)`'s choice and order, lower index first
+    on ties.  `torch.topk` promises no tie order: where more entries of a
+    row equal its k-th smallest value than topk kept, it may keep others
+    than the lowest-indexed, so those rows are chosen again by a stable
+    sort.  The kept k are then re-sorted stably: by index, then by
+    distance."""
     vals, idx = torch.topk(d, k, dim=1, largest=False, sorted=False)
+    kth = vals.max(1, keepdim=True).values
+    ragged = ((d == kth).sum(1) > (vals == kth).sum(1)).nonzero()[:, 0]
+    if len(ragged):
+        idx[ragged] = torch.sort(d[ragged], dim=1, stable=True).indices[:, :k]
+        vals[ragged] = torch.gather(d[ragged], 1, idx[ragged])
     idx, o = torch.sort(idx, dim=1)
     vals = torch.gather(vals, 1, o)
     vals, o = torch.sort(vals, dim=1, stable=True)

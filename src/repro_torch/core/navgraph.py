@@ -1,0 +1,226 @@
+"""Multi-layer in-memory navigation graph (§4.3, Algorithm 3); port of
+`repro.core.navgraph`.  Each layer's BAMG is the host build
+(`core.bamg.build_bamg`), as in the reference.
+
+Layer 0 is the disk-resident BAMG.  Each upper layer is built by selecting,
+from every block of the layer below, representatives of its intra-block
+connected components (zero-in-degree nodes first, then greedy coverage), and
+rebuilding a BAMG over the selected subset; recursion stops at <= gamma
+nodes.  Every block of the layer below is therefore reachable from the upper
+layer via one I/O.
+
+Layers keep only neighbor lists (no raw vectors) -- in-memory footprint is
+tiny; distances during navigation use the PQ codes (also in memory).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from .bamg import BAMGGraph, build_bamg
+
+
+@dataclasses.dataclass
+class NavLayer:
+    vids: np.ndarray     # (n_l,) original dataset ids of this layer's nodes
+    adj: np.ndarray      # (n_l, R) padded adjacency in layer-local indices
+    entry: int           # layer-local entry node (medoid of the subset)
+
+
+@dataclasses.dataclass
+class NavGraph:
+    layers: list[NavLayer]       # [0] = topmost (smallest) layer
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.layers)
+
+    def memory_bytes(self) -> int:
+        return sum(l.adj.nbytes + l.vids.nbytes for l in self.layers)
+
+
+def select_block_representatives(g: BAMGGraph) -> np.ndarray:
+    """Alg. 3 lines 5-12: per block, zero-in-degree seeds + greedy coverage
+    of the remaining intra-block connected structure.  Local indices."""
+    n = g.adj.shape[0]
+    blocks = g.blocks
+    # intra-block out-neighbor lists + in-degree (intra-block edges only)
+    indeg = np.zeros(n, np.int64)
+    intra: list[list[int]] = [[] for _ in range(n)]
+    for u in range(n):
+        for v in g.adj[u]:
+            v = int(v)
+            if v >= 0 and blocks[v] == blocks[u]:
+                intra[u].append(v)
+                indeg[v] += 1
+
+    def cover_from(seeds: list[int], covered: np.ndarray) -> None:
+        stack = list(seeds)
+        for s in seeds:
+            covered[s] = True
+        while stack:
+            a = stack.pop()
+            for b in intra[a]:
+                if not covered[b]:
+                    covered[b] = True
+                    stack.append(b)
+
+    selected: list[int] = []
+    for b in range(g.members.shape[0]):
+        row = g.members[b]
+        mem = row[row >= 0].tolist()
+        if not mem:
+            continue
+        covered = np.zeros(n, bool)
+        seeds = [u for u in mem if indeg[u] == 0]
+        if not seeds:  # fully cyclic block: fall back to min in-degree node
+            seeds = [min(mem, key=lambda u: (indeg[u], u))]
+        cover_from(seeds, covered)
+        selected.extend(seeds)
+        # greedy: pick uncovered (min in-degree) until the block is covered
+        while True:
+            unc = [u for u in mem if not covered[u]]
+            if not unc:
+                break
+            u = min(unc, key=lambda t: (indeg[t], t))
+            selected.append(u)
+            cover_from([u], covered)
+    return np.asarray(sorted(set(selected)), np.int64)
+
+
+def build_navgraph(
+    x: np.ndarray,
+    base: BAMGGraph,
+    alpha: int,
+    beta: float,
+    gamma: int = 256,
+    capacity: int | None = None,
+    r: int = 24,
+    l_build: int = 48,
+    knn_k: int = 24,
+    seed: int = 0,
+    max_layers: int = 8,
+    device=None,
+) -> NavGraph:
+    """Algorithm 3.  `base` is the already-built disk BAMG over all of x;
+    the layers' distance products run on `device` (None: the CUDA
+    device)."""
+    capacity = capacity if capacity is not None else base.capacity
+    layers: list[NavLayer] = []
+    cur_graph = base
+    cur_vids = np.arange(len(x), dtype=np.int64)
+    for _ in range(max_layers):
+        sel_local = select_block_representatives(cur_graph)
+        sel_vids = cur_vids[sel_local]
+        if len(sel_vids) >= len(cur_vids):  # no reduction: stop (degenerate)
+            break
+        sub_x = x[sel_vids]
+        if len(sel_vids) <= max(gamma, 8) or len(sel_vids) <= capacity:
+            # final (topmost) layer: small enough to search directly
+            g = build_bamg(sub_x, capacity=min(capacity, max(2, len(sel_vids))),
+                           alpha=alpha, beta=beta, r=min(r, len(sel_vids) - 1),
+                           l_build=l_build, knn_k=min(knn_k, len(sel_vids) - 1),
+                           seed=seed, device=device)
+            layers.append(NavLayer(vids=sel_vids, adj=g.adj, entry=g.entry))
+            break
+        g = build_bamg(sub_x, capacity=capacity, alpha=alpha, beta=beta,
+                       r=min(r, len(sel_vids) - 1), l_build=l_build,
+                       knn_k=min(knn_k, len(sel_vids) - 1), seed=seed,
+                       device=device)
+        layers.append(NavLayer(vids=sel_vids, adj=g.adj, entry=g.entry))
+        cur_graph = g
+        cur_vids = sel_vids
+        if len(sel_vids) <= gamma:
+            break
+    layers.reverse()  # [0] = topmost
+    return NavGraph(layers=layers)
+
+
+def nav_pin_gblocks(nav: NavGraph | None, blocks: np.ndarray, budget: int,
+                    entry: int | None = None) -> np.ndarray:
+    """Disk graph blocks worth pinning in memory (Starling-style).
+
+    Every disk search enters through the finest navigation layer's nodes, so
+    their graph blocks are the hottest in the whole index: with a per-query
+    cold cache each would cost one NIO at the start of every query.  Rank
+    blocks by how many finest-layer vids they host and return the top
+    `budget` block ids (for `DecoupledStorage(pinned_gblocks=...)` /
+    `PinnedCache`).  Falls back to the entry node's block when no navigation
+    graph exists.
+    """
+    blocks = np.asarray(blocks, np.int64)
+    if budget <= 0:
+        return np.empty(0, np.int64)
+    if nav is not None and nav.layers:
+        vids = np.asarray(nav.layers[-1].vids, np.int64)
+    elif entry is not None:
+        vids = np.asarray([entry], np.int64)
+    else:
+        return np.empty(0, np.int64)
+    hot, counts = np.unique(blocks[vids], return_counts=True)
+    order = np.argsort(-counts, kind="stable")
+    return hot[order][:budget].astype(np.int64)
+
+
+def search_nav(
+    nav: NavGraph,
+    pq_dist_fn,
+    n_entry: int = 4,
+    ef: int = 16,
+) -> tuple[list[int], int]:
+    """Descend the navigation layers with greedy beam search (PQ distances,
+    zero I/O).  Returns (entry vids for the disk search, n_pq_used)."""
+    n_pq = 0
+    if not nav.layers:
+        return [], 0
+    # top layer: start from its entry node
+    seeds_vids = [int(nav.layers[0].vids[nav.layers[0].entry])]
+    for layer in nav.layers:
+        vid_to_local = {int(v): i for i, v in enumerate(layer.vids.tolist())}
+        starts = [vid_to_local.get(v) for v in seeds_vids]
+        starts = [s for s in starts if s is not None] or [layer.entry]
+        ids, used = _greedy_layer(layer, starts, pq_dist_fn, max(ef, n_entry))
+        n_pq += used
+        seeds_vids = [int(layer.vids[i]) for i in ids[: max(n_entry, 1)]]
+    return seeds_vids[:n_entry], n_pq
+
+
+def _greedy_layer(layer: NavLayer, starts: list[int], pq_dist_fn, ef: int):
+    """Best-first beam over one in-memory layer (local indices)."""
+    import bisect
+    vids = layer.vids
+    d0 = pq_dist_fn(vids[np.asarray(starts, np.int64)])
+    n_pq = len(starts)
+    pd: list[float] = []
+    pid: list[int] = []
+    checked: list[bool] = []
+    seen = set()
+    for s, dv in zip(starts, np.asarray(d0).tolist()):
+        if s in seen:
+            continue
+        i = bisect.bisect_right(pd, dv)
+        pd.insert(i, dv); pid.insert(i, s); checked.insert(i, False)
+        seen.add(s)
+    while True:
+        ui = next((i for i, c in enumerate(checked) if not c and i < ef), -1)
+        if ui < 0:
+            break
+        checked[ui] = True
+        v = pid[ui]
+        nn = layer.adj[v]
+        nn = nn[nn >= 0]
+        new = [int(u) for u in nn.tolist() if u not in seen]
+        if not new:
+            continue
+        seen.update(new)
+        dd = pq_dist_fn(vids[np.asarray(new, np.int64)])
+        n_pq += len(new)
+        bound = pd[ef - 1] if len(pd) >= ef else np.inf
+        for u, du in zip(new, np.asarray(dd).tolist()):
+            if du < bound or len(pd) < ef:
+                i = bisect.bisect_right(pd, du)
+                pd.insert(i, du); pid.insert(i, u); checked.insert(i, False)
+                if len(pd) > 4 * ef:
+                    pd.pop(); pid.pop(); checked.pop()
+    return pid, n_pq

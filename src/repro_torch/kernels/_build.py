@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -39,6 +40,8 @@ _SIGNATURES = {
     "pq_adc_rowwise_launch": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
     "beam_hops_adc_launch": (_I, [_P] * 14 + [_I] * 6 + [_P]),
     "beam_hops_adc_smem_bytes": (ctypes.c_size_t, [_I] * 4),
+    "beam_hops_l2_launch": (_I, [_P] * 16 + [_I] * 5 + [_P]),
+    "beam_hops_l2_smem_bytes": (ctypes.c_size_t, [_I] * 3),
     "kernel_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -121,6 +124,16 @@ def use_kernel(backend: str, t: torch.Tensor, name: str) -> bool:
         raise ValueError(f"{name} backend='cuda' needs CUDA tensors, "
                          f"got a tensor on {t.device}")
     return backend != "ref" and t.is_cuda
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count(wrapper, attr: str = "launches") -> None:
+    """Add one to the wrapper's launch counter `attr`, under a lock: the
+    build stages launch from two host threads (`build.chunking`)."""
+    with _COUNT_LOCK:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,

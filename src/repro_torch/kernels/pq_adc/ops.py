@@ -42,7 +42,7 @@ def pq_adc(tables: torch.Tensor, codes: torch.Tensor,
     if b and n:
         _build.launch("pq_adc", "pq_adc_launch", dev, tables.data_ptr(),
                       codes.data_ptr(), out.data_ptr(), b, n, m, k)
-        pq_adc.launches += 1
+        _build.count(pq_adc)
     return out
 
 
@@ -67,7 +67,7 @@ def pq_adc_rowwise(tables: torch.Tensor, cand_codes: torch.Tensor,
         _build.launch("pq_adc_rowwise", "pq_adc_rowwise_launch", dev,
                       tables.data_ptr(), cand_codes.data_ptr(),
                       out.data_ptr(), b, r, m, k)
-        pq_adc_rowwise.launches += 1
+        _build.count(pq_adc_rowwise)
     return out
 
 

@@ -27,7 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import reject_tpu_backend, resolve_device, to_device
 from ..build.pool import pool_merge
 from ..core.pq import adc_tables
 from ..kernels.beam_fused import beam_hops
@@ -35,10 +35,6 @@ from ..kernels.l2_topk import l2_topk_rowwise
 from ..kernels.pq_adc import pq_adc, pq_adc_rowwise
 
 BACKENDS = ("auto", "fused", "cuda", "ref", "fused_ref")
-# the JAX package's TPU backends -> their counterpart here
-_TPU_BACKENDS = {"pallas": "cuda", "interpret": "ref",
-                 "fused_pallas": "fused", "fused_interpret": "fused_ref",
-                 "fused_stream": "fused", "fused_stream_interpret": "fused_ref"}
 
 
 def resolve_backend(backend: str, device) -> str:
@@ -46,10 +42,7 @@ def resolve_backend(backend: str, device) -> str:
     is "fused" on a CUDA device and "ref" on the CPU.  The kernel backends
     ("fused", "cuda") raise on the CPU, and the TPU names raise with their
     Hopper counterpart."""
-    if backend in _TPU_BACKENDS:
-        raise ValueError(
-            f"backend {backend!r} is a TPU backend of the JAX package; its "
-            f"Hopper counterpart is {_TPU_BACKENDS[backend]!r}")
+    reject_tpu_backend(backend, BACKENDS)
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     on_cuda = torch.device(device).type == "cuda"
@@ -157,16 +150,12 @@ class BatchedANNEngine:
         self.config = config = config if config is not None else EngineConfig()
         self.device = dev = resolve_device(device)
         self.n, self.d = arrays["x"].shape
-
-        def as_t(a, dtype):   # numpy arrays are copied (they may be read-only)
-            t = a if torch.is_tensor(a) else torch.from_numpy(np.array(a))
-            return t.to(dev, dtype).contiguous()
-
-        self.x = as_t(arrays["x"], torch.float32)
-        self.adj = as_t(arrays["adj"], torch.int32)
-        self.codes = as_t(arrays["codes"], torch.uint8)
-        self.codebooks = as_t(arrays["codebooks"], torch.float32)
-        self.entry_cands = as_t(arrays["entry_cands"], torch.int64)
+        # numpy arrays are copied (they may be read-only)
+        self.x = to_device(arrays["x"], dev, torch.float32)
+        self.adj = to_device(arrays["adj"], dev, torch.int32)
+        self.codes = to_device(arrays["codes"], dev, torch.uint8)
+        self.codebooks = to_device(arrays["codebooks"], dev, torch.float32)
+        self.entry_cands = to_device(arrays["entry_cands"], dev, torch.int64)
         self.entry_codes = self.codes[self.entry_cands].contiguous()
         self.tomb = torch.zeros(self.n, dtype=torch.bool, device=dev)
         l = min(config.l, self.n)

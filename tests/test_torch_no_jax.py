@@ -34,7 +34,13 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     """Blocking a name in sys.modules makes any import of it raise, so
     this fails if any module reaches jax or repro, even indirectly."""
     mods = _modules()
-    assert "repro_torch.serve.ann_engine" in mods
+    assert {"repro_torch.serve.ann_engine", "repro_torch.build.builder",
+            "repro_torch.build.frontier", "repro_torch.build.prune",
+            "repro_torch.build.knn", "repro_torch.build.bamg_refine",
+            "repro_torch.build.chunking", "repro_torch.core.graph_build",
+            "repro_torch.core.block_assign", "repro_torch.core.bamg",
+            "repro_torch.core.navgraph", "repro_torch.core.storage",
+            "repro_torch.core.engine"} <= set(mods)
     code = "\n".join([
         "import importlib, sys, runpy",
         "for name in ('jax', 'jaxlib', 'repro'):",
