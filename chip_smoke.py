@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's batched BAMG query and construction paths
-on one NVIDIA GPU.
+and DIN serving on one NVIDIA GPU.
 
 Run from the root of a checkout, with one card:
 
@@ -15,9 +15,13 @@ Phases, in order; any failed check raises and the script exits nonzero:
    at the main paths' shapes and on ragged cases (odd batch sizes, -1
    adjacency pads, rows that run out of frontier, integer-valued tables and
    vectors that force (dist, id) ties, tables above 48 KB of shared memory,
-   D = 960 query rows); times by CUDA events beside the plain version, a
-   one-call PyTorch yardstick where one exists, and the least time the card
-   could take (`bound_ms`);
+   D = 960 query rows); for the L2 top-k kernel, bitwise, odd B, N not a
+   multiple of its chunk, k = 1, k = N and k > N (+inf / -1), integer data
+   (ties), D = 1 and 960 and bf16 inputs, then DIN's retrieval shapes
+   (B = 1 and 64, N = 1,048,576, D = 18, k = 1024) and the kernel bench's
+   (B = 8, N = 100,000, D = 128, k = 100); times by CUDA events beside the
+   plain version, a PyTorch yardstick where one exists, and the least time
+   the card could take (`bound_ms`);
 4. query path: `paper_dataset("sift-like")` at `--n` with exact top-100
    ground truth, an exact kNN graph at BAMG's serving width R = 32, PQ
    trained and encoded on the card, and 1,024 queries served in batches of
@@ -36,7 +40,17 @@ Phases, in order; any failed check raises and the script exits nonzero:
    the kernel's frontier pools must equal the plain version's, and one
    profiled frontier run splits the stage into the kernel's device time,
    other device time and the host; the two backends must agree, and every
-   stage's time is logged.
+   stage's time is logged;
+6. DIN serving at `din_cfg.model_config()` (embed 18, history 100,
+   attention MLP 80-40, MLP 200-80, 1,048,576 items, rerank_k 1,024),
+   parameters from the port's `init_params` with a seeded generator on the
+   card: `serve_p99` (16 batches of 512 rows from `din_batch`; the first
+   against the same model on the CPU), `serve_bulk` (262,144 rows in calls
+   of 8,192), and `retrieval_cand` (64 calls of B = 1 and one of B = 64
+   against all 1,048,576 items, k = 100) under "auto" (the L2 top-k
+   kernel) and "ref" (plain PyTorch): shortlists and final items must be
+   equal, the kernel must have launched under "auto" only, and each call's
+   time is split into shortlist and re-rank.
 
 The last lines are the card's nvidia-smi line, one JSON object with every
 kernel's numbers, and `{"ok": true, "device": {...}}`.  The script exits
@@ -46,6 +60,7 @@ stands outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import statistics
 import subprocess
@@ -78,6 +93,167 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def din_serving(dev, card: str, reset_counts, read_counts) -> int:
+    """Phase 6: DIN's serving shapes at its full published width; returns
+    the L2 top-k kernel's launches on the retrieval path under "auto"."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import din_cfg
+    from repro_torch.data.synthetic import din_batch
+    from repro_torch.kernels.l2_topk.ops import plan
+    from repro_torch.models.recsys.din import BATCH_KEYS, init_params
+
+    t_phase = time.perf_counter()
+    cfg = din_cfg.model_config(reduced=False)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    model = init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    log(f"DIN: {cfg} | init_params on the card {time.perf_counter() - t0:.2f}"
+        f" s | item table {model.item_emb.numel() * 4 / 1e6:.1f} MB")
+
+    def batch(step, b):
+        arrays = din_batch(step, b, cfg.seq_len, cfg.n_items, cfg.n_cates,
+                           seed=SEED)
+        return dict(zip(BATCH_KEYS, arrays[:5]))
+
+    def synced(fn):
+        """(fn(), host ms) with the card synchronised on both sides."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def busy(fn, calls: int) -> tuple[float, float, float]:
+        """Card time per call that torch.profiler's CUDA activity sees over
+        `calls` calls run by fn(), the part of it in the l2_topk kernels,
+        and kernel runs per call."""
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        avgs = [a for a in prof.key_averages() if a.self_device_time_total > 0]
+        return (sum(a.self_device_time_total for a in avgs) / 1e3 / calls,
+                sum(a.self_device_time_total for a in avgs
+                    if "l2_topk" in a.key) / 1e3 / calls,
+                sum(a.count for a in avgs) / calls)
+
+    # serve_p99: 16 batches of 512; the first also on a CPU copy of the
+    # model (cuBLAS and the CPU's BLAS sum in other orders: rtol 1e-4,
+    # atol 1e-5)
+    p99 = [batch(s, 512) for s in range(16)]
+    model.forward_scores(p99[0])                              # warm-up
+    times = []
+    for b in p99:
+        scores, ms = synced(lambda: model.forward_scores(b))
+        times.append(ms)
+        if scores.shape != (512,) or not torch.isfinite(scores).all():
+            raise AssertionError("serve_p99: scores not finite of shape (512,)")
+    on_cpu = copy.deepcopy(model).cpu().forward_scores(p99[0])
+    got = model.forward_scores(p99[0]).cpu()
+    torch.testing.assert_close(got, on_cpu, rtol=1e-4, atol=1e-5)
+    med = statistics.median(times)
+    dev_ms, _, runs = busy(lambda: [model.forward_scores(b) for b in p99], 16)
+    log(f"  serve_p99: card busy {dev_ms:.4f} ms per batch ({runs:.1f} "
+        f"kernel runs) = {dev_ms / med:.2%} of the per-batch median")
+    log(f"serve_p99: B=512 x 16 batches | per-batch median {med:.3f} ms, "
+        f"min {min(times):.3f}, max {max(times):.3f} | {512 / med * 1e3:.1f} "
+        f"rows/s (median), {512 * 16 / sum(times) * 1e3:.1f} (all) | card vs "
+        f"CPU max |diff| {float((got - on_cpu).abs().max()):.3g} | {card}")
+
+    # serve_bulk: 262,144 rows in 32 calls of 8,192 (one call would hold
+    # 32 times a call's activations at once: its attention features alone,
+    # 262,144 x 100 x 144 f32, are 15.1 GB)
+    bulk = [batch(1000 + s, 8192) for s in range(32)]
+    model.forward_scores(bulk[0])                             # warm-up
+    torch.cuda.reset_peak_memory_stats()
+
+    def run_bulk():
+        return [model.forward_scores(b) for b in bulk]
+    outs, ms = synced(run_bulk)
+    if not all(o.shape == (8192,) and torch.isfinite(o).all() for o in outs):
+        raise AssertionError("serve_bulk: scores not finite")
+    dev_ms, _, runs = busy(run_bulk, 32)
+    log(f"  serve_bulk: card busy {dev_ms:.4f} ms per call of 8192 rows "
+        f"({runs:.1f} kernel runs) = {dev_ms * 32 / ms:.2%} of the wall time")
+    log(f"serve_bulk: 262144 rows in 32 calls of 8192 | {ms:.1f} ms | "
+        f"{262144 / ms * 1e3:.1f} rows/s | peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB | {card}")
+    del outs, bulk
+
+    # retrieval_cand: 64 calls of B = 1 and one of B = 64 against all
+    # 2^20 items, k = 100 (the reference's cell), under the kernel and the
+    # plain version
+    n_cand, k = cfg.n_items, min(100, cfg.rerank_k)
+    requests = [batch(2000 + i, 1) for i in range(64)] + [batch(3000, 64)]
+    for b in requests[:2]:                                    # warm-up
+        model.rerank(b, model.shortlist(b, n_cand), k)
+    out, launches, call_med = {}, {}, {}
+    for backend in ("auto", "ref"):
+        reset_counts()
+        res, t_short, t_rerank = [], [], []
+        for b in requests:
+            short, ms_s = synced(lambda: model.shortlist(b, n_cand, backend))
+            (scores, ids), ms_r = synced(lambda: model.rerank(b, short, k))
+            res.append((short, scores, ids))
+            t_short.append(ms_s)
+            t_rerank.append(ms_r)
+        launches[backend] = read_counts()
+        out[backend] = res
+        call_med[backend] = statistics.median(
+            s + r for s, r in zip(t_short[:64], t_rerank[:64]))
+        log(f"retrieval_cand {backend}: B=1 per-call median "
+            f"{call_med[backend]:.3f} ms (shortlist "
+            f"{statistics.median(t_short[:64]):.3f}, re-rank "
+            f"{statistics.median(t_rerank[:64]):.3f}) | B=64 one call "
+            f"{t_short[64] + t_rerank[64]:.3f} ms (shortlist "
+            f"{t_short[64]:.3f}, re-rank {t_rerank[64]:.3f}) | launches "
+            f"{launches[backend]} | {card}")
+    dev_ms, l2_ms, runs = busy(lambda: [
+        model.rerank(b, model.shortlist(b, n_cand), k)
+        for b in requests[:64]], 64)
+    log(f"  retrieval_cand auto, B=1: card busy {dev_ms:.4f} ms per call "
+        f"({runs:.1f} kernel runs; l2_topk {l2_ms:.4f} ms) = "
+        f"{dev_ms / call_med['auto']:.2%} of the per-call median")
+    per_call = len(plan(n_cand, cfg.rerank_k))
+    want = {name: 0 for name in launches["auto"]}
+    if launches["ref"] != want:
+        raise AssertionError(f"ref launched kernels: {launches['ref']}")
+    if launches["auto"] != dict(want, l2_topk=len(requests) * per_call):
+        raise AssertionError(f"auto launches {launches['auto']}: expected "
+                             f"l2_topk = {len(requests)} x {per_call} only")
+    err = 0.0
+    for (s_a, sc_a, i_a), (s_r, sc_r, i_r) in zip(out["auto"], out["ref"]):
+        if not (torch.equal(s_a, s_r) and torch.equal(i_a, i_r)):
+            raise AssertionError("retrieval_cand: auto and ref differ")
+        torch.testing.assert_close(sc_a, sc_r, rtol=1e-6, atol=1e-7)
+        err = max(err, float((sc_a - sc_r).abs().max()))
+        if (not torch.isfinite(sc_a).all() or (sc_a.diff(dim=1) > 0).any()
+                or ((i_a < 0) | (i_a >= n_cand)).any()):
+            raise AssertionError("retrieval_cand: bad scores or ids")
+    # the cascade's entry point gives the split calls' answer, and its
+    # scores are the forward scores of (user, returned item)
+    big = requests[64]
+    scores, ids = model.retrieval_step(big, n_cand, k=k)
+    if not torch.equal(ids, out["auto"][64][2]):
+        raise AssertionError("retrieval_step differs from its stages")
+    rows = {key: np.repeat(v, k, axis=0) for key, v in big.items()}
+    rows["target_item"] = ids.cpu().numpy().reshape(-1).astype(np.int32)
+    rows["target_cate"] = rows["target_item"] % cfg.n_cates
+    torch.testing.assert_close(model.forward_scores(rows).reshape(64, k),
+                               scores, rtol=1e-5, atol=1e-6)
+    log(f"retrieval_cand: auto == ref on all {len(requests)} calls "
+        f"(shortlists and items equal, scores max |diff| {err:.3g}); "
+        f"l2_topk launched {launches['auto']['l2_topk']} times under auto "
+        f"({per_call} per call), 0 under ref | phase 6 took "
+        f"{time.perf_counter() - t_phase:.1f} s | {card}")
+    return launches["auto"]["l2_topk"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -105,6 +281,7 @@ def main(argv=None) -> int:
     from repro_torch.build import BuildConfig, GraphBuilder
     from repro_torch.build.frontier import frontier_arrays, frontier_pools
     from repro_torch.build.pool import pool_merge
+    from repro_torch.configs import din_cfg
     from repro_torch.core.block_assign import intra_edge_fraction
     from repro_torch.core.distances import knn_graph, medoid, recall_at_k
     from repro_torch.core.engine import _pick_pq_m, batch_arrays
@@ -116,6 +293,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.beam_fused import beam_hops, beam_hops_ref
     from repro_torch.kernels.beam_fused.ref import l2_score, sq_norms
+    from repro_torch.kernels.l2_topk import l2_topk, l2_topk_ref
+    from repro_torch.kernels.l2_topk.ops import plan
     from repro_torch.kernels.pq_adc import (pq_adc, pq_adc_ref,
                                             pq_adc_rowwise, pq_adc_rowwise_ref)
     from repro_torch.serve import BatchedANNEngine, EngineConfig
@@ -145,7 +324,8 @@ def main(argv=None) -> int:
     counters = {"pq_adc": (pq_adc, "launches"),
                 "pq_adc_rowwise": (pq_adc_rowwise, "launches"),
                 "beam_hops": (beam_hops, "launches"),
-                "beam_hops_l2": (beam_hops, "l2_launches")}
+                "beam_hops_l2": (beam_hops, "l2_launches"),
+                "l2_topk": (l2_topk, "launches")}
 
     def reset_counts():
         for fn, attr in counters.values():
@@ -265,7 +445,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     errs = {"pq_adc": 0.0, "pq_adc_rowwise": 0.0, "beam_hops": 0.0,
-            "beam_hops_l2": 0.0}
+            "beam_hops_l2": 0.0, "l2_topk": 0.0}
 
     # ragged cases: odd B, N and R, integer tables, >48 KB tables (M = 64)
     for b, n, m, k, integer in ((37, 1000, 8, 64, True),
@@ -451,6 +631,68 @@ def main(argv=None) -> int:
         f"{valid_l2} valid neighbours scored")
     del x, n2, q
 
+    # exact L2 top-k, bitwise: ragged N, odd B, k = 1, k = N, k > N, ties
+    # of integer data, D = 1 and 960, bf16 inputs
+    t_l2 = time.perf_counter()
+
+    def l2_case(b, n, d, kind):
+        if kind == "integer":
+            x = torch.randint(-2, 3, (n + b, d), device=dev,
+                              generator=gen).float()
+        else:
+            x = torch.randn((n + b, d), device=dev, generator=gen)
+        if kind == "bf16":
+            x = x.bfloat16()
+        return x[n:].contiguous(), x[:n].contiguous()
+
+    for b, n, d, k, kind in ((37, 20001, 18, 100, "integer"),
+                             (5, 777, 4, 1, "normal"),
+                             (4, 300, 8, 300, "integer"),
+                             (4, 300, 8, 1000, "normal"),
+                             (3, 5000, 1, 64, "integer"),
+                             (2, 3000, 960, 8, "normal"),
+                             (3, 9000, 64, 16, "bf16"),
+                             (7, 65537, 18, 1024, "normal")):
+        q, base = l2_case(b, n, d, kind)
+        got = l2_topk(q, base, k)
+        same(f"l2_topk B={b} N={n} D={d} k={k} {kind}", got,
+             l2_topk_ref(q, base, k), exact=True)
+        if k > n and not ((got[1][:, n:] == -1).all()
+                          and torch.isinf(got[0][:, n:]).all()):
+            raise AssertionError("l2_topk: no +inf / -1 past N")
+    log("kernel checks l2_topk (ragged, ties, k > N, D = 1 and 960, bf16): "
+        "ok, bitwise")
+    # DIN's retrieval shapes (B = 1 is the retrieval_cand cell; N, D and
+    # k are the item table's rows, its width and rerank_k) and the kernel
+    # bench's; each byte counted once, the distances' operations as
+    # 2*B*N*D + 2*N*D
+    din = din_cfg.model_config()
+    main_l2 = (1, din.n_items, din.embed_dim, din.rerank_k)
+    l2_rows = {}
+    for b, n, d, k in (main_l2, (64,) + main_l2[1:], (8, 100_000, 128, 100)):
+        q, base = l2_case(b, n, d, "normal")
+        got = l2_topk(q, base, k)
+        errs["l2_topk"] = max(errs["l2_topk"], same(
+            f"l2_topk B={b} N={n} D={d} k={k}", got,
+            l2_topk_ref(q, base, k), exact=True))
+        lib = torch.topk(torch.cdist(q, base), k, largest=False)
+        log(f"  l2_topk B={b} N={n} D={d} k={k}: {len(plan(n, k))} "
+            f"launches per call; yardstick topk(cdist) ids equal to the "
+            f"kernel's at {float((lib.indices == got[1]).float().mean()):.4f}"
+            f" of positions")
+        l2_rows[b, n, d, k] = dict(
+            kernel=timed(lambda: l2_topk(q, base, k), iters=30),
+            plain=timed(lambda: l2_topk_ref(q, base, k), iters=3,
+                        dev_iters=2),
+            library=timed(lambda: torch.topk(torch.cdist(q, base), k,
+                                             largest=False), iters=10,
+                          dev_iters=5),
+            bound=bound((b * d + n * d) * 4 + b * k * 8,
+                        2 * b * n * d + 2 * n * d))
+        del q, base, lib
+    rows["l2_topk"] = l2_rows[main_l2]
+    log(f"  l2_topk checks and timings took {time.perf_counter() - t_l2:.1f} s")
+
     def fmt(t):
         if t is None:
             return "none"
@@ -463,6 +705,11 @@ def main(argv=None) -> int:
             f"{row['bound'][0] * 1e3:.3f} us ({row['bound'][1]}) | max|err| "
             f"{errs[name]:.3g} | {card}")
         log(f"  device kernels seen: {row['kernel']['names']}")
+    for (b, n, d, k), row in l2_rows.items():
+        log(f"kernel l2_topk B={b} N={n} D={d} k={k}: {fmt(row['kernel'])} "
+            f"| plain {fmt(row['plain'])} | library topk(cdist), two calls: "
+            f"{fmt(row['library'])} | bound {row['bound'][0] * 1e3:.3f} us "
+            f"({row['bound'][1]}) | {card}")
     del adj, codes, nb, cand_codes, pool, got, want, kw
     torch.cuda.empty_cache()
 
@@ -593,7 +840,7 @@ def main(argv=None) -> int:
     build_launches = read_counts()
     chunks = -(-n_build // 256)
     if build_launches != {"pq_adc": 0, "pq_adc_rowwise": 0, "beam_hops": 0,
-                          "beam_hops_l2": chunks}:
+                          "beam_hops_l2": chunks, "l2_topk": 0}:
         raise AssertionError(f"build launches {build_launches}: expected "
                              f"beam_hops_l2 = ceil(N / 256) = {chunks} and "
                              f"no other kernel")
@@ -698,6 +945,10 @@ def main(argv=None) -> int:
     log("construction path: auto == ref on the built BAMG (ids equal, dists "
         f"within 1e-5, exact to 1e-4 relative); {len(dead)} tombstoned ids "
         "never returned")
+    torch.cuda.empty_cache()
+
+    # ---- 6. DIN serving -------------------------------------------------------
+    din_launches = din_serving(dev, card, reset_counts, read_counts)
 
     # ---- result lines -------------------------------------------------------
     meta = {
@@ -709,6 +960,8 @@ def main(argv=None) -> int:
                       "src/repro/kernels/beam_fused/kernel.py:442"),
         "beam_hops_l2": ("src/repro_torch/csrc/beam_hops_l2.cu",
                          "src/repro/kernels/beam_fused/kernel.py:472"),
+        "l2_topk": ("src/repro_torch/csrc/l2_topk.cu",
+                    "src/repro/kernels/l2_topk/kernel.py:67"),
     }
     also = {"beam_hops": "src/repro/kernels/beam_fused/kernel.py:511",
             "beam_hops_l2": "src/repro/kernels/beam_fused/kernel.py:546"}
@@ -717,6 +970,7 @@ def main(argv=None) -> int:
     path_launches = {k: launches["auto"][k] + launches["cuda"][k]
                      for k in counters}
     path_launches["beam_hops_l2"] = build_launches["beam_hops_l2"]
+    path_launches["l2_topk"] = din_launches
     def on_card(t):
         if t is None:
             return None
@@ -743,6 +997,10 @@ def main(argv=None) -> int:
             "timing": timing}
         if name in also:
             entry["also_replaces"] = also[name]
+        if name == "l2_topk":
+            entry["shape"] = ("B={} N={} D={} k={} (retrieval_cand)"
+                              .format(*main_l2))
+            entry["library"] = "torch.topk(torch.cdist(q, x)): two calls"
         kernels.append(entry)
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,9 +1,10 @@
-"""Deterministic synthetic vector corpora: the vector part of
-`repro.data.synthetic`.
+"""Deterministic synthetic data: the vector corpora and the DIN event
+streams of `repro.data.synthetic`.
 
-Base vectors and queries are drawn with numpy exactly as the reference
-draws them, so for a given seed they are bit-identical to `repro`'s; the
-exact ground truth is computed with the port's `exact_knn` on `device`.
+Everything is drawn with numpy exactly as the reference draws it, so for
+a given seed the arrays are bit-identical to `repro`'s; the exact ground
+truth of a vector corpus is computed with the port's `exact_knn` on
+`device`.
 """
 from __future__ import annotations
 
@@ -65,3 +66,26 @@ def paper_dataset(regime: str, n: int = 8000, nq: int = 50, seed: int = 0,
     return make_vector_dataset(regime, n, cfg["d"], nq,
                                n_clusters=cfg["n_clusters"], seed=seed,
                                device=device)
+
+
+# ---------------------------------------------------------------------------
+# RecSys event streams (DIN)
+# ---------------------------------------------------------------------------
+def din_batch(step: int, batch: int, seq_len: int, n_items: int, n_cates: int,
+              seed: int = 0):
+    """(hist_items, hist_cates, hist_len, target_item, target_cate, label)
+    as numpy arrays, a pure function of (seed, step)."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, step, 7]))
+    u = rng.random((batch, seq_len))
+    hist_items = np.minimum(n_items * (u ** 2), n_items - 1).astype(np.int32)
+    hist_cates = (hist_items % n_cates).astype(np.int32)
+    hist_len = rng.integers(1, seq_len + 1, batch).astype(np.int32)
+    target_item = np.minimum(n_items * (rng.random(batch) ** 2),
+                             n_items - 1).astype(np.int32)
+    target_cate = (target_item % n_cates).astype(np.int32)
+    # label correlates with whether target's category appears in history
+    mask = np.arange(seq_len)[None, :] < hist_len[:, None]
+    seen = ((hist_cates == target_cate[:, None]) & mask).any(1)
+    noise = rng.random(batch) < 0.15
+    label = (seen ^ noise).astype(np.float32)
+    return hist_items, hist_cates, hist_len, target_item, target_cate, label

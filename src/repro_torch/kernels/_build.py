@@ -42,6 +42,9 @@ _SIGNATURES = {
     "beam_hops_adc_smem_bytes": (ctypes.c_size_t, [_I] * 4),
     "beam_hops_l2_launch": (_I, [_P] * 16 + [_I] * 5 + [_P]),
     "beam_hops_l2_smem_bytes": (ctypes.c_size_t, [_I] * 3),
+    "l2_topk_rows_launch": (_I, [_P] * 5 + [_I] * 6 + [_P]),
+    "l2_topk_keys_launch": (_I, [_P] * 4 + [_I] * 5 + [_P]),
+    "l2_topk_smem_bytes": (ctypes.c_size_t, [_I] * 2),
     "kernel_error_string": (ctypes.c_char_p, [_I]),
 }
 

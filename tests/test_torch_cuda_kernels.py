@@ -7,8 +7,8 @@ with only PyTorch and the CUDA toolkit:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
 The plain versions keep the kernels' summation order (ascending m for
-ADC, ascending i with no fused multiply-add for exact L2), so kernel and
-plain version are compared bitwise.
+ADC, ascending i with no fused multiply-add for exact L2 and the L2
+top-k), so kernel and plain version are compared bitwise.
 """
 import numpy as np
 import pytest
@@ -20,8 +20,13 @@ from repro_torch.core.distances import knn_graph
 from repro_torch.core.pq import train_pq
 from repro_torch.kernels.beam_fused import beam_hops, beam_hops_ref
 from repro_torch.kernels.beam_fused.ref import l2_score, sq_norms
+from repro_torch.kernels.l2_topk import l2_topk, l2_topk_ref
+from repro_torch.kernels.l2_topk.ops import plan
+from repro_torch.models.recsys.din import init_params
 from repro_torch.kernels.pq_adc import (pq_adc, pq_adc_ref, pq_adc_rowwise,
                                         pq_adc_rowwise_ref)
+from repro_torch.configs import din_cfg
+from repro_torch.data.synthetic import din_batch
 from repro_torch.serve import BatchedANNEngine, EngineConfig
 
 pytestmark = pytest.mark.cuda
@@ -160,6 +165,52 @@ def test_frontier_fused_kernel_matches_plain(dev):
     np.testing.assert_array_equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("b,n,d,k,kind", [
+    (1, 1 << 20, 18, 1024, "normal"), (8, 100000, 128, 100, "normal"),
+    (37, 20001, 18, 100, "integer"), (3, 5000, 1, 64, "integer"),
+    (2, 3000, 960, 8, "normal"), (5, 777, 4, 1, "normal"),
+    (4, 300, 8, 300, "integer"), (4, 300, 8, 1000, "normal"),
+    (3, 9000, 64, 16, "bf16")])
+def test_l2_topk_kernel_matches_plain(dev, b, n, d, k, kind):
+    """Bitwise: ragged N, odd B, k = 1, k = N, k > N (+inf / -1), ties of
+    integer data, D = 1 and 960, bf16 inputs; one launch per pass."""
+    if kind == "integer":
+        x = torch.randint(-2, 3, (n + b, d), device=dev).float()
+    else:
+        x = torch.randn((n + b, d), device=dev)
+    if kind == "bf16":
+        x = x.bfloat16()
+    base, q = x[:n].contiguous(), x[n:].contiguous()
+    before = l2_topk.launches
+    got = l2_topk(q, base, k)
+    assert l2_topk.launches == before + len(plan(n, k))
+    want = l2_topk_ref(q, base, k)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    if k > n:
+        assert (got[1][:, n:] == -1).all() and torch.isinf(got[0][:, n:]).all()
+
+
+def test_din_retrieval_kernel_matches_plain(dev):
+    """DIN's cascade under "auto" (the kernel) and "ref" (the plain
+    version) gives the same shortlist and the same final items."""
+    cfg = din_cfg.model_config(reduced=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = init_params(cfg, gen, device=dev)
+    batch = dict(zip(("hist_items", "hist_cates", "hist_len", "target_item",
+                      "target_cate"),
+                     din_batch(0, 9, cfg.seq_len, cfg.n_items, cfg.n_cates)))
+    before = l2_topk.launches
+    short = model.shortlist(batch, cfg.n_items)
+    assert l2_topk.launches > before
+    assert torch.equal(short, model.shortlist(batch, cfg.n_items, "ref"))
+    got = model.retrieval_step(batch, cfg.n_items, k=10)
+    want = model.retrieval_step(batch, cfg.n_items, k=10, backend="ref")
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=0)
+
+
 def test_kernel_limits_and_checks_raise(dev):
     t = _tables(2, 4, 16, False, dev)
     c = _codes((10, 4), 16, dev)
@@ -184,6 +235,12 @@ def test_kernel_limits_and_checks_raise(dev):
         big = torch.zeros((10, 60000), device=dev)
         beam_hops(adj[:, :8].contiguous(), ids, d, exp, 2, x=big,
                   n2=sq_norms(big), queries=torch.zeros((2, 60000), device=dev))
+    with pytest.raises(ValueError, match="k <= 1024"):
+        l2_topk(x[:2], x, 1025)
+    with pytest.raises(ValueError, match="base"):
+        l2_topk(x[:2], x[:, :7].contiguous(), 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        l2_topk(big[:1], big, 4)
 
 
 def test_engine_backends_agree_on_card(dev):
