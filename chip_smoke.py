@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's batched BAMG query and construction paths
-and DIN serving on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's batched BAMG query and construction paths,
+DIN serving and OLMo-1B decode serving on one NVIDIA GPU.
 
 Run from the root of a checkout, with one card:
 
@@ -19,9 +19,15 @@ Phases, in order; any failed check raises and the script exits nonzero:
    multiple of its chunk, k = 1, k = N and k > N (+inf / -1), integer data
    (ties), D = 1 and 960 and bf16 inputs, then DIN's retrieval shapes
    (B = 1 and 64, N = 1,048,576, D = 18, k = 1024) and the kernel bench's
-   (B = 8, N = 100,000, D = 128, k = 100); times by CUDA events beside the
-   plain version, a PyTorch yardstick where one exists, and the least time
-   the card could take (`bound_ms`);
+   (B = 8, N = 100,000, D = 128, k = 100); for flash-decode, within atol
+   1e-5 of its plain version, the reference's sweep, G = 1, 4 and 32,
+   Dh = 16, 120, 128 and 256, ragged S, cache_len ragged, 1, S, 0 (zeros)
+   and > S (clamped), f32 and bf16 caches, then one decode_32k layer
+   (B = 8, H = Hkv = 16, Dh = 128, S = 32,768, bf16), the kernel bench's
+   shape (B = 4, H = 32, Hkv = 8, S = 8,192) and one long_500k layer
+   (B = 1, S = 524,288); times by CUDA events beside the plain version, a
+   PyTorch yardstick where one exists, and the least time the card could
+   take (`bound_ms`);
 4. query path: `paper_dataset("sift-like")` at `--n` with exact top-100
    ground truth, an exact kNN graph at BAMG's serving width R = 32, PQ
    trained and encoded on the card, and 1,024 queries served in batches of
@@ -50,7 +56,20 @@ Phases, in order; any failed check raises and the script exits nonzero:
    against all 1,048,576 items, k = 100) under "auto" (the L2 top-k
    kernel) and "ref" (plain PyTorch): shortlists and final items must be
    equal, the kernel must have launched under "auto" only, and each call's
-   time is split into shortlist and re-rank.
+   time is split into shortlist and re-rank;
+7. OLMo-1B decode serving at `olmo_1b.model_config()` (16 layers, d =
+   2048, 16 heads of 128, d_ff 8192, vocab 50,304), parameters from the
+   port's `init_lm_params` with a seeded generator on the card, held in
+   bf16: B = 8 prompts of 1,024 tokens from `lm_batch` prefilled into a
+   cache of 1,024 + 32, then 32 greedy `decode_step`s under "auto" (the
+   flash-decode kernel, 2 launches per layer) and "ref" (plain PyTorch,
+   fed the same tokens): logits within 0.25 and greedy tokens equal
+   wherever ref's top-2 margin exceeds that; the same path in f32 for 4
+   steps, each token the argmax of a fresh teacher-forced prefill where
+   its margin exceeds 1e-3; then decode_32k at B = 8 (the cell's 128 would
+   need a 550 GB cache): a 32,768-slot bf16 cache filled N(0, 1) below
+   position 32,767 and 16 steps there under both backends, with the step
+   time, tokens/s, the card's busy share and the kernel's part of it.
 
 The last lines are the card's nvidia-smi line, one JSON object with every
 kernel's numbers, and `{"ok": true, "device": {...}}`.  The script exits
@@ -254,6 +273,242 @@ def din_serving(dev, card: str, reset_counts, read_counts) -> int:
     return launches["auto"]["l2_topk"]
 
 
+def lm_serving(dev, card, reset_counts, read_counts) -> int:
+    """Phase 7: OLMo-1B decode serving at its full config; returns the
+    flash_decode kernel's launches on the bf16 `auto` runs (the requests
+    and decode_32k)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import olmo_1b
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models.transformer import (compute_cast, decode_step,
+                                                init_cache, init_lm_params,
+                                                serve_prefill)
+
+    t_phase = time.perf_counter()
+    cfg = olmo_1b.model_config()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    params32 = init_lm_params(cfg, gen, device=dev)
+    params = compute_cast(params32, torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"LM: {cfg.name} {cfg.n_layers}L d={cfg.d_model} H={cfg.n_heads} "
+        f"Hkv={cfg.n_kv_heads} Dh={cfg.d_head} ff={cfg.d_ff} V={cfg.vocab} "
+        f"{cfg.norm} {cfg.activation} | {cfg.n_params()} parameters, "
+        f"{cfg.n_params() * 2 / 1e9:.3f} GB in bf16 | init_lm_params on the "
+        f"card {time.perf_counter() - t0:.2f} s")
+    n_layers = cfg.n_layers
+    # bf16 logits (std about 1, the largest about 5): the kernel and the
+    # plain version differ in the f32 attention sums at about 1e-7, and 16
+    # bf16 layers of random weights spread that over most logits at a few
+    # bf16 ulps (2^-5 at 4); a fault in the kernel moves them by O(1).
+    # 0.25 is a quarter of the logits' spread and 8 ulps at the largest
+    tol = 0.25
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def decode(p, c, caches, logits, positions, n, backend, feed=()):
+        """n greedy decode steps from `logits`, step i at positions(i) and
+        fed feed[i] where given (not None), else the last logits' argmax;
+        returns (per-step logits (n, B, V) f32, tokens, per-step ms)."""
+        steps, toks, times = [], [], []
+        for i in range(n):
+            tok = (feed[i] if i < len(feed) and feed[i] is not None
+                   else logits.argmax(-1)[:, None].int())
+            pos = positions(i)
+            (logits, caches), ms = synced(lambda: decode_step(
+                p, c, tok, pos, caches, backend=backend))
+            steps.append(logits.float())
+            toks.append(tok)
+            times.append(ms)
+        return torch.stack(steps), toks, times
+
+    def agree(name, got, want, tol):
+        """Logits within `tol`; argmax equal wherever `want`'s top-2
+        margin exceeds it.  Returns a log fragment: max and mean |diff|,
+        the share of logits that differ, positions checked."""
+        d = (got - want).abs()
+        if float(d.max()) > tol:
+            raise AssertionError(f"{name}: logits differ by {float(d.max())}"
+                                 f" > {tol}")
+        top2 = want.topk(2, dim=-1).values
+        sure = (top2[..., 0] - top2[..., 1]) > tol
+        if not torch.equal(got.argmax(-1)[sure], want.argmax(-1)[sure]):
+            raise AssertionError(f"{name}: greedy tokens differ")
+        share = float((d > 0).float().mean())
+        return (f"logits max |auto - ref| {float(d.max()):.4g} (tol {tol}), "
+                f"mean {float(d.mean()):.4g}, {share:.2%} of logits differ, "
+                f"max |ref logit| "
+                f"{float(want.abs().max()):.4g}; greedy tokens equal at "
+                f"{int(sure.sum())} of {sure.numel()} positions with margin "
+                f"> tol")
+
+    def busy(step, n=8):
+        """Card time per step that torch.profiler's CUDA activity sees over
+        n calls of step(i), the part of it in flash_decode, and kernel runs
+        per step."""
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for i in range(n):
+                step(i)
+            torch.cuda.synchronize()
+        avgs = [a for a in prof.key_averages() if a.self_device_time_total > 0]
+        return (sum(a.self_device_time_total for a in avgs) / 1e3 / n,
+                sum(a.self_device_time_total for a in avgs
+                    if "flash_decode" in a.key) / 1e3 / n,
+                sum(a.count for a in avgs) / n)
+
+    def busy_log(name, step, med):
+        dev_ms, fd_ms, runs = busy(step)
+        log(f"  {name} auto: card busy {dev_ms:.4f} ms per step ({runs:.1f} "
+            f"kernel runs; flash_decode {fd_ms:.4f} ms, "
+            f"{fd_ms / dev_ms if dev_ms else 0:.2%} of busy) = "
+            f"{dev_ms / med:.2%} of the per-step median")
+
+    def expect(launches, n_fd):
+        want = {name: 0 for name in launches}
+        want["flash_decode"] = n_fd
+        if launches != want:
+            raise AssertionError(f"launches {launches}, expected {want}")
+
+    # requests: B = 8 prompts of 1,024 tokens, a cache of 1,024 + 32, then
+    # 32 greedy steps under the kernel and under the plain version (which
+    # is fed the kernel run's tokens)
+    b, p_len, n_new = 8, 1024, 32
+    prompt = torch.from_numpy(lm_batch(0, b, p_len, cfg.vocab,
+                                       seed=SEED)[0]).to(dev)
+    serve_prefill(params, cfg, prompt[:, :64])                   # warm-up
+    (logits0, (ck, cv), lens), ms_pre = synced(
+        lambda: serve_prefill(params, cfg, prompt))
+    ck0, cv0, _ = init_cache(cfg, b, p_len + n_new, device=dev)
+    ck0[:, :, :p_len], cv0[:, :, :p_len] = ck, cv
+    del ck, cv
+    runs, launches = {}, {}
+    for backend in ("auto", "ref"):
+        caches = (ck0.clone(), cv0.clone(), lens)
+        reset_counts()
+        runs[backend] = decode(params, cfg, caches, logits0,
+                               lambda i: torch.full((b,), p_len + i,
+                                                    device=dev),
+                               n_new, backend,
+                               () if backend == "auto" else runs["auto"][1])
+        launches[backend] = read_counts()
+        del caches
+    expect(launches["auto"], n_new * n_layers * 2)
+    expect(launches["ref"], 0)
+    agreed = agree("requests", runs["auto"][0], runs["ref"][0], tol)
+    med = {k: statistics.median(r[2]) for k, r in runs.items()}
+    # the card's busy time per step over 8 more steps on a copy of the
+    # prompt's cache; the share is taken of the unprofiled median
+    caches = (ck0.clone(), cv0.clone(), lens)
+    tok = runs["auto"][1][0]
+    busy_log("requests", lambda i: decode_step(
+        params, cfg, tok, torch.full((b,), p_len + i, device=dev), caches),
+        med["auto"])
+    del caches
+    log(f"LM requests: B={b} prompt {p_len} | prefill {ms_pre:.3f} ms "
+        f"({b * p_len / ms_pre * 1e3:.1f} tokens/s) | {n_new} decode steps: "
+        f"auto median {med['auto']:.3f} ms ({b / med['auto'] * 1e3:.1f} "
+        f"tokens/s), ref {med['ref']:.3f} ms | {agreed} | launches auto "
+        f"{launches['auto']['flash_decode']}, ref 0 | {card}")
+    req_launches = launches["auto"]["flash_decode"]
+    del runs, ck0, cv0
+
+    # the same path in f32 for 4 steps: each greedy token is the argmax of
+    # a fresh teacher-forced prefill over the extended sequence wherever
+    # that prefill's top-2 margin exceeds 1e-3 (tests/test_lm.py)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    n32 = 4
+    logits, (ck, cv), lens = serve_prefill(params32, cfg32, prompt)
+    ck0, cv0, _ = init_cache(cfg32, b, p_len + n32, device=dev)
+    ck0[:, :, :p_len], cv0[:, :, :p_len] = ck, cv
+    del ck, cv
+    reset_counts()
+    steps, toks, _ = decode(params32, cfg32, (ck0, cv0, lens), logits,
+                            lambda i: torch.full((b,), p_len + i, device=dev),
+                            n32, "auto")
+    expect(read_counts(), n32 * n_layers * 2)
+    del ck0, cv0
+    seq, checked, worst = prompt, 0, 0.0
+    for i in range(n32):
+        want = serve_prefill(params32, cfg32, seq)[0]
+        if i:       # step i - 1's logits: the token after seq[:, :-1]
+            worst = max(worst, float((steps[i - 1] - want).abs().max()))
+        top2 = want.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 1e-3
+        if not torch.equal(want.argmax(-1)[sure], toks[i][:, 0].long()[sure]):
+            raise AssertionError(f"f32 step {i}: decode's token differs from "
+                                 f"the teacher-forced prefill's")
+        checked += int(sure.sum())
+        seq = torch.cat([seq, toks[i]], 1)
+    log(f"LM f32: {n32} decode steps (auto) == teacher-forced prefill argmax "
+        f"at {checked} of {n32 * b} positions with margin > 1e-3; decode vs "
+        f"prefill logits max |diff| {worst:.3g}")
+    del params32, steps, seq
+    torch.cuda.empty_cache()
+
+    # decode_32k at B = 8 (the cell's batch is 128; its cache would be 550
+    # GB): positions 0-32,766 of a 32,768-slot cache drawn N(0, 1) in bf16,
+    # then 16 steps at position 32,767 under the kernel and the plain
+    # version (fed the kernel run's tokens); each step rewrites slot 32,767
+    # of every layer before reading it
+    shape = LM_SHAPES["decode_32k"]
+    s = shape.seq_len
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ck, cv, _ = init_cache(cfg, b, s, device=dev)
+    for li in range(n_layers):
+        ck[li, :, :s - 1].normal_(generator=gen)
+        cv[li, :, :s - 1].normal_(generator=gen)
+    torch.cuda.synchronize()
+    t_fill = time.perf_counter() - t0
+    lens = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
+    first = torch.from_numpy(lm_batch(1, b, 1, cfg.vocab, seed=SEED)[0]).to(
+        dev)
+    logits = torch.zeros((b, cfg.vocab), device=dev)
+    n_steps = 16
+    at_end = lambda i: torch.full((b,), s - 1, device=dev)    # noqa: E731
+    decode(params, cfg, (ck, cv, lens), logits, at_end, 2, "auto",
+           [first] * 2)                                          # warm-up
+    runs = {}
+    for backend in ("auto", "ref"):
+        reset_counts()
+        runs[backend] = decode(params, cfg, (ck, cv, lens), logits, at_end,
+                               n_steps, backend,
+                               [first] if backend == "auto"
+                               else runs["auto"][1])
+        launches[backend] = read_counts()
+    expect(launches["auto"], n_steps * n_layers * 2)
+    expect(launches["ref"], 0)
+    agreed = agree("decode_32k", runs["auto"][0], runs["ref"][0], tol)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = {k: statistics.median(r[2]) for k, r in runs.items()}
+    tok = runs["auto"][1][-1]
+    busy_log("decode_32k", lambda i: decode_step(
+        params, cfg, tok, at_end(i), (ck, cv, lens)), med["auto"])
+    log(f"LM decode_32k: B={b} (cell 128) S={s} | cache fill {t_fill:.2f} s "
+        f"| {n_steps} steps at position {s - 1}: auto median "
+        f"{med['auto']:.3f} ms, min {min(runs['auto'][2]):.3f}, max "
+        f"{max(runs['auto'][2]):.3f} ({b / med['auto'] * 1e3:.1f} tokens/s)"
+        f", ref {med['ref']:.3f} ms ({b / med['ref'] * 1e3:.1f} tokens/s) | "
+        f"{agreed} | peak device memory {peak:.2f} GiB | launches auto "
+        f"{launches['auto']['flash_decode']}, ref 0 | phase 7 took "
+        f"{time.perf_counter() - t_phase:.1f} s | {card}")
+    del ck, cv, runs, params
+    torch.cuda.empty_cache()
+    return req_launches + launches["auto"]["flash_decode"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -293,6 +548,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.beam_fused import beam_hops, beam_hops_ref
     from repro_torch.kernels.beam_fused.ref import l2_score, sq_norms
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
     from repro_torch.kernels.l2_topk import l2_topk, l2_topk_ref
     from repro_torch.kernels.l2_topk.ops import plan
     from repro_torch.kernels.pq_adc import (pq_adc, pq_adc_ref,
@@ -325,7 +581,8 @@ def main(argv=None) -> int:
                 "pq_adc_rowwise": (pq_adc_rowwise, "launches"),
                 "beam_hops": (beam_hops, "launches"),
                 "beam_hops_l2": (beam_hops, "l2_launches"),
-                "l2_topk": (l2_topk, "launches")}
+                "l2_topk": (l2_topk, "launches"),
+                "flash_decode": (flash_decode, "launches")}
 
     def reset_counts():
         for fn, attr in counters.values():
@@ -445,7 +702,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     errs = {"pq_adc": 0.0, "pq_adc_rowwise": 0.0, "beam_hops": 0.0,
-            "beam_hops_l2": 0.0, "l2_topk": 0.0}
+            "beam_hops_l2": 0.0, "l2_topk": 0.0, "flash_decode": 0.0}
 
     # ragged cases: odd B, N and R, integer tables, >48 KB tables (M = 64)
     for b, n, m, k, integer in ((37, 1000, 8, 64, True),
@@ -693,6 +950,89 @@ def main(argv=None) -> int:
     rows["l2_topk"] = l2_rows[main_l2]
     log(f"  l2_topk checks and timings took {time.perf_counter() - t_l2:.1f} s")
 
+    # flash-decode within atol 1e-5 of its plain version: the reference's
+    # sweep (tests/test_kernels.py), G = 1, 4 and 32, Dh = 16, 120, 128 and
+    # 256, ragged S; cache_len ragged, 1, S, 0 (zeros) and > S (clamped);
+    # f32 and bf16 caches and queries
+    t_fd = time.perf_counter()
+
+    def fd_case(b, h, hkv, dh, s, dt):
+        return (torch.randn((b, h, dh), device=dev, generator=gen).to(dt),
+                torch.randn((b, s, hkv, dh), device=dev, generator=gen,
+                            dtype=dt),
+                torch.randn((b, s, hkv, dh), device=dev, generator=gen,
+                            dtype=dt))
+
+    def fd_check(name, q, k, v, lens):
+        got = flash_decode(q, k, v, lens)
+        want = flash_decode_ref(q, k, v, lens)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5,
+                                   msg=lambda m: f"{name}: {m}")
+        errs["flash_decode"] = max(errs["flash_decode"],
+                                   float((got - want).abs().max()))
+        return got
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    for b, h, hkv, dh, s, dt in ((2, 8, 4, 64, 300, f32),
+                                 (1, 4, 1, 32, 512, f32),
+                                 (3, 16, 16, 64, 200, f32),
+                                 (2, 8, 2, 128, 1000, f32),
+                                 (2, 8, 2, 128, 1000, bf16),
+                                 (3, 16, 16, 128, 777, bf16),
+                                 (2, 8, 2, 120, 333, bf16),
+                                 (3, 4, 4, 16, 77, bf16),
+                                 (2, 8, 1, 256, 513, bf16),
+                                 (2, 64, 2, 64, 100, f32)):
+        q, k, v = fd_case(b, h, hkv, dh, s, dt)
+        for kind, n in (
+                ("ragged", torch.randint(1, s + 1, (b,), device=dev,
+                                         generator=gen)),
+                ("1", torch.ones(b, device=dev)),
+                ("S", torch.full((b,), s, device=dev)),
+                ("0", torch.zeros(b, device=dev)),
+                ("> S", torch.full((b,), s + 5, device=dev))):
+            fd_out = fd_check(f"flash_decode B={b} H={h} Hkv={hkv} Dh={dh} "
+                           f"S={s} {dt} cache_len {kind}", q, k, v, n.int())
+            if kind == "0" and (fd_out != 0).any():
+                raise AssertionError("flash_decode: cache_len 0 is not zeros")
+    log(f"kernel checks flash_decode (G = 1, 4, 32; Dh = 16, 120, 128, 256; "
+        f"cache_len ragged, 1, S, 0, > S; f32 and bf16): ok, max |err| "
+        f"{errs['flash_decode']:.3g}")
+    # one decode_32k layer at B = 8 (the main path's shape), the kernel
+    # bench's (bench_kernels.py) and one long_500k layer, bf16, every
+    # position valid; bytes: K and V once, q in, out f32; operations
+    # 4 B H S Dh
+    main_fd = (8, 16, 16, 128, 32768)
+    fd_rows = {}
+    for b, h, hkv, dh, s in (main_fd, (4, 32, 8, 128, 8192),
+                             (1, 16, 16, 128, 524288)):
+        q, k, v = fd_case(b, h, hkv, dh, s, bf16)
+        n = torch.full((b,), s, dtype=torch.int32, device=dev)
+        fd_out = fd_check(f"flash_decode B={b} H={h} Hkv={hkv} Dh={dh} S={s}",
+                       q, k, v, n)
+        mask = (torch.arange(s, device=dev)[None, :]
+                < n[:, None])[:, None, None, :]
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True)
+        log(f"  flash_decode B={b} H={h} Hkv={hkv} Dh={dh} S={s}: "
+            f"2 launches per call; yardstick SDPA (bf16 out) max |diff| "
+            f"{float((sdpa()[:, :, 0].float() - fd_out).abs().max()):.3g}")
+        fd_rows[b, h, hkv, dh, s] = dict(
+            kernel=timed(lambda: flash_decode(q, k, v, n), iters=30),
+            plain=timed(lambda: flash_decode_ref(q, k, v, n), iters=3,
+                        dev_iters=2),
+            library=timed(sdpa, iters=10, dev_iters=5),
+            bound=bound(2 * k.numel() * 2 + q.numel() * 2 + b * h * dh * 4,
+                        4 * b * h * s * dh))
+        del q, k, v, kt, vt, fd_out, mask
+        torch.cuda.empty_cache()
+    rows["flash_decode"] = fd_rows[main_fd]
+    log(f"  flash_decode checks and timings took "
+        f"{time.perf_counter() - t_fd:.1f} s")
+
     def fmt(t):
         if t is None:
             return "none"
@@ -710,6 +1050,11 @@ def main(argv=None) -> int:
             f"| plain {fmt(row['plain'])} | library topk(cdist), two calls: "
             f"{fmt(row['library'])} | bound {row['bound'][0] * 1e3:.3f} us "
             f"({row['bound'][1]}) | {card}")
+    for (b, h, hkv, dh, s), row in fd_rows.items():
+        log(f"kernel flash_decode B={b} H={h} Hkv={hkv} Dh={dh} S={s} bf16: "
+            f"{fmt(row['kernel'])} | plain {fmt(row['plain'])} | library "
+            f"SDPA {fmt(row['library'])} | bound {row['bound'][0] * 1e3:.3f} "
+            f"us ({row['bound'][1]}) | {card}")
     del adj, codes, nb, cand_codes, pool, got, want, kw
     torch.cuda.empty_cache()
 
@@ -840,7 +1185,8 @@ def main(argv=None) -> int:
     build_launches = read_counts()
     chunks = -(-n_build // 256)
     if build_launches != {"pq_adc": 0, "pq_adc_rowwise": 0, "beam_hops": 0,
-                          "beam_hops_l2": chunks, "l2_topk": 0}:
+                          "beam_hops_l2": chunks, "l2_topk": 0,
+                          "flash_decode": 0}:
         raise AssertionError(f"build launches {build_launches}: expected "
                              f"beam_hops_l2 = ceil(N / 256) = {chunks} and "
                              f"no other kernel")
@@ -950,6 +1296,9 @@ def main(argv=None) -> int:
     # ---- 6. DIN serving -------------------------------------------------------
     din_launches = din_serving(dev, card, reset_counts, read_counts)
 
+    # ---- 7. OLMo-1B decode serving ------------------------------------------
+    lm_launches = lm_serving(dev, card, reset_counts, read_counts)
+
     # ---- result lines -------------------------------------------------------
     meta = {
         "pq_adc": ("src/repro_torch/csrc/pq_adc.cu",
@@ -962,6 +1311,8 @@ def main(argv=None) -> int:
                          "src/repro/kernels/beam_fused/kernel.py:472"),
         "l2_topk": ("src/repro_torch/csrc/l2_topk.cu",
                     "src/repro/kernels/l2_topk/kernel.py:67"),
+        "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
+                         "src/repro/kernels/flash_decode/kernel.py:81"),
     }
     also = {"beam_hops": "src/repro/kernels/beam_fused/kernel.py:511",
             "beam_hops_l2": "src/repro/kernels/beam_fused/kernel.py:546"}
@@ -971,6 +1322,7 @@ def main(argv=None) -> int:
                      for k in counters}
     path_launches["beam_hops_l2"] = build_launches["beam_hops_l2"]
     path_launches["l2_topk"] = din_launches
+    path_launches["flash_decode"] = lm_launches
     def on_card(t):
         if t is None:
             return None
@@ -1001,6 +1353,12 @@ def main(argv=None) -> int:
             entry["shape"] = ("B={} N={} D={} k={} (retrieval_cand)"
                               .format(*main_l2))
             entry["library"] = "torch.topk(torch.cdist(q, x)): two calls"
+        if name == "flash_decode":
+            entry["shape"] = ("B={} H={} Hkv={} Dh={} S={} bf16 (one "
+                              "decode_32k layer)".format(*main_fd))
+            entry["library"] = ("F.scaled_dot_product_attention(q[:, :, None]"
+                                ", k.transpose(1, 2), v.transpose(1, 2), "
+                                "attn_mask=pos < cache_len, enable_gqa=True)")
         kernels.append(entry)
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
-"""Deterministic synthetic data: the vector corpora and the DIN event
-streams of `repro.data.synthetic`.
+"""Deterministic synthetic data: the vector corpora, the LM token streams
+and the DIN event streams of `repro.data.synthetic`.
 
 Everything is drawn with numpy exactly as the reference draws it, so for
 a given seed the arrays are bit-identical to `repro`'s; the exact ground
@@ -66,6 +66,19 @@ def paper_dataset(regime: str, n: int = 8000, nq: int = 50, seed: int = 0,
     return make_vector_dataset(regime, n, cfg["d"], nq,
                                n_clusters=cfg["n_clusters"], seed=seed,
                                device=device)
+
+
+# ---------------------------------------------------------------------------
+# LM token streams
+# ---------------------------------------------------------------------------
+def lm_batch(step: int, batch: int, seq_len: int, vocab: int, seed: int = 0):
+    """Deterministic (tokens, labels) for one step, int32 numpy arrays:
+    Zipf-ish unigram stream."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
+    # Zipf-like marginal over the vocab (heavy head, long tail)
+    u = rng.random((batch, seq_len + 1))
+    toks = np.minimum((vocab * (u ** 3)), vocab - 1).astype(np.int32)
+    return toks[:, :-1], toks[:, 1:]
 
 
 # ---------------------------------------------------------------------------

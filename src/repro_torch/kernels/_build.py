@@ -45,6 +45,9 @@ _SIGNATURES = {
     "l2_topk_rows_launch": (_I, [_P] * 5 + [_I] * 6 + [_P]),
     "l2_topk_keys_launch": (_I, [_P] * 4 + [_I] * 5 + [_P]),
     "l2_topk_smem_bytes": (ctypes.c_size_t, [_I] * 2),
+    "flash_decode_split_launch": (_I, [_P] * 7 + [_I] * 9
+                                  + [ctypes.c_float, _P]),
+    "flash_decode_combine_launch": (_I, [_P] * 4 + [_I] * 3 + [_P]),
     "kernel_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -1,1 +1,1 @@
-"""Models of the port: the recsys workload (DIN) so far."""
+"""Models of the port: the recsys workload (DIN) and LM serving."""

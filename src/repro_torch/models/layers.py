@@ -1,12 +1,107 @@
 """Shared neural building blocks (port of the parts of
-`repro.models.layers` that DIN needs)."""
+`repro.models.layers` that DIN and LM serving need).
+
+Norms and RoPE run in f32 and cast back to the input's dtype, as in the
+reference.  `softmax_xent_chunked` and `constrain` wait for the
+training slice.
+"""
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor | None, eps: float = 1e-6,
+            offset: float = 0.0) -> torch.Tensor:
+    """RMSNorm in f32; `offset`=1.0 gives the gemma (1+scale) convention."""
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    if scale is not None:
+        y = y * (offset + scale.float())
+    return y.to(x.dtype)
+
+
+def nonparam_layernorm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """OLMo's non-parametric LayerNorm: normalize (population variance),
+    no scale/bias."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, correction=0)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def apply_norm(kind: str, x: torch.Tensor, scale, **kw) -> torch.Tensor:
+    if kind == "rmsnorm":
+        return rmsnorm(x, scale, **kw)
+    if kind == "rmsnorm_gemma":
+        return rmsnorm(x, scale, offset=1.0, **kw)
+    if kind == "nonparam_ln":
+        return nonparam_layernorm(x)
+    raise ValueError(kind)
+
+
+def norm_param(kind: str, d: int, device=None) -> torch.Tensor | None:
+    if kind == "nonparam_ln":
+        return None
+    if kind == "rmsnorm_gemma":
+        return torch.zeros((d,), device=device)   # (1 + scale) convention
+    return torch.ones((d,), device=device)
+
+
+# ---------------------------------------------------------------------------
+# Activations / MLP
+# ---------------------------------------------------------------------------
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def act_fn(kind: str):
+    """`jax.nn.gelu` approximates with tanh by default, so "gelu" does too."""
+    return {"silu": F.silu, "gelu": _gelu_tanh, "gelu_tanh": _gelu_tanh,
+            "relu": torch.relu}[kind]
+
+
+def gated_mlp(x: torch.Tensor, w_gate, w_in, w_out,
+              activation: str = "silu") -> torch.Tensor:
+    """SwiGLU / GeGLU: act(x @ w_gate) * (x @ w_in) @ w_out."""
+    g = act_fn(activation)(x @ w_gate)
+    return (g * (x @ w_in)) @ w_out
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+def rope_frequencies(dh: int, theta: float = 10000.0,
+                     device=None) -> torch.Tensor:
+    """(dh//2,) inverse frequencies."""
+    return 1.0 / (theta ** (torch.arange(0, dh, 2, dtype=torch.float32,
+                                         device=device) / dh))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x (..., S, H, Dh), positions (..., S) int -> rotated x (split halves
+    convention, matching llama/gemma reference implementations); angles
+    in f32."""
+    dh = x.shape[-1]
+    inv = rope_frequencies(dh, theta, x.device)              # (dh/2,)
+    ang = positions[..., None].float() * inv                 # (..., S, dh/2)
+    cos = torch.cos(ang)[..., None, :]                       # (..., S, 1, dh/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
 def dense_init(generator: torch.Generator, d_in: int, d_out: int,
                device=None, dtype=torch.float32) -> torch.Tensor:
     """A (d_in, d_out) weight, N(0, 1/d_in), in the reference's layout
@@ -16,3 +111,11 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int,
     w = torch.randn((d_in, d_out), generator=generator,
                     device=generator.device, dtype=torch.float32) * std
     return w.to(device=device, dtype=dtype)
+
+
+def embed_init(generator: torch.Generator, vocab: int, d: int,
+               device=None) -> torch.Tensor:
+    """A (vocab, d) f32 table, N(0, 0.02^2), drawn like `dense_init`."""
+    w = torch.randn((vocab, d), generator=generator, device=generator.device,
+                    dtype=torch.float32) * 0.02
+    return w.to(device)

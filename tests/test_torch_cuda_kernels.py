@@ -8,7 +8,10 @@ with only PyTorch and the CUDA toolkit:
 
 The plain versions keep the kernels' summation order (ascending m for
 ADC, ascending i with no fused multiply-add for exact L2 and the L2
-top-k), so kernel and plain version are compared bitwise.
+top-k), so kernel and plain version are compared bitwise.  Flash-decode
+is the exception: its online softmax over splits of the positions sums
+in another order than the plain version's single softmax, so the two are
+held within atol 1e-5 on f32 outputs.
 """
 import numpy as np
 import pytest
@@ -18,11 +21,15 @@ from repro_torch.build.frontier import frontier_pools
 from repro_torch.build.pool import pool_merge
 from repro_torch.core.distances import knn_graph
 from repro_torch.core.pq import train_pq
+from repro_torch.configs import olmo_1b
 from repro_torch.kernels.beam_fused import beam_hops, beam_hops_ref
+from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
 from repro_torch.kernels.beam_fused.ref import l2_score, sq_norms
 from repro_torch.kernels.l2_topk import l2_topk, l2_topk_ref
 from repro_torch.kernels.l2_topk.ops import plan
 from repro_torch.models.recsys.din import init_params
+from repro_torch.models.transformer import (decode_step, init_cache,
+                                            init_lm_params, serve_prefill)
 from repro_torch.kernels.pq_adc import (pq_adc, pq_adc_ref, pq_adc_rowwise,
                                         pq_adc_rowwise_ref)
 from repro_torch.configs import din_cfg
@@ -268,3 +275,80 @@ def test_engine_backends_agree_on_card(dev):
         np.testing.assert_array_equal(ids, out["ref"][0], err_msg=backend)
         np.testing.assert_allclose(dists, out["ref"][1], rtol=1e-5,
                                    atol=1e-5, err_msg=backend)
+
+
+@pytest.mark.parametrize("b,h,hkv,dh,s,dtype,lens", [
+    (2, 8, 4, 64, 300, "f32", "random"), (1, 4, 1, 32, 512, "f32", "random"),
+    (3, 16, 16, 64, 200, "f32", "random"), (2, 8, 2, 128, 1000, "f32", "full"),
+    (2, 8, 2, 120, 333, "bf16", "random"), (3, 4, 4, 16, 77, "bf16", "one"),
+    (2, 8, 1, 256, 513, "bf16", "full"), (3, 8, 2, 64, 300, "bf16", "zero"),
+    (3, 8, 2, 64, 300, "f32", "past_s"), (2, 64, 2, 64, 100, "f32", "random"),
+    (4, 32, 8, 128, 8192, "bf16", "full")])
+def test_flash_decode_kernel_matches_plain(dev, b, h, hkv, dh, s, dtype,
+                                           lens):
+    """Within atol 1e-5: G = 1 to 32, Dh = 16 to 256, ragged S, f32 and
+    bf16 caches and queries, cache_len random, 1, S, 0 (zeros) and > S
+    (clamped); two launches per call."""
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(b * s + dh)
+    q = torch.randn((b, h, dh), device=dev, generator=gen).to(dt)
+    k = torch.randn((b, s, hkv, dh), device=dev, generator=gen).to(dt)
+    v = torch.randn((b, s, hkv, dh), device=dev, generator=gen).to(dt)
+    n = {"random": torch.randint(1, s + 1, (b,), device=dev, generator=gen),
+         "full": torch.full((b,), s, device=dev),
+         "one": torch.ones(b, device=dev), "zero": torch.zeros(b, device=dev),
+         "past_s": torch.full((b,), s + 9, device=dev)}[lens].int()
+    before = flash_decode.launches
+    got = flash_decode(q, k, v, n)
+    assert flash_decode.launches == before + 2
+    want = flash_decode_ref(q, k, v, n)
+    assert got.dtype == torch.float32 and got.shape == (b, h, dh)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    if lens == "zero":
+        assert (got == 0).all()
+
+
+def test_flash_decode_limits_raise(dev):
+    q = torch.zeros((2, 4, 300), device=dev)
+    kv = torch.zeros((2, 8, 2, 300), device=dev)
+    n = torch.full((2,), 8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="Dh <= 256"):
+        flash_decode(q, kv, kv, n)
+    with pytest.raises(ValueError, match="multiple of"):
+        flash_decode(q[:, :3, :64].contiguous(), kv[..., :64].contiguous(),
+                     kv[..., :64].contiguous(), n)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_decode(q[..., :64].contiguous(), kv[..., :64], kv[..., :64], n)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        flash_decode(q[..., :64].contiguous().half(), kv[..., :64].contiguous(),
+                     kv[..., :64].contiguous(), n)
+
+
+def test_lm_decode_kernel_matches_plain(dev):
+    """OLMo's reduced config in f32 on the card: a prefill, then 4 greedy
+    decode steps under "auto" (the kernel, 2 launches per layer) and
+    "ref" (the plain version) give logits within 1e-5 and equal tokens."""
+    cfg = olmo_1b.model_config(reduced=True)
+    params = init_lm_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    prompt = torch.randint(0, cfg.vocab, (3, 24), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    logits0, (ck, cv), lens = serve_prefill(params, cfg, prompt)
+    out, toks = {}, []              # "ref" is fed "auto"'s greedy tokens
+    for backend in ("auto", "ref"):
+        ck0, cv0, _ = init_cache(cfg, 3, 32, device=dev)
+        ck0[:, :, :24], cv0[:, :, :24] = ck, cv
+        caches, logits, steps = (ck0, cv0, lens), logits0, []
+        before = flash_decode.launches
+        for i in range(4):
+            if backend == "auto":
+                toks.append(logits.argmax(-1)[:, None].int())
+            logits, caches = decode_step(params, cfg, toks[i],
+                                         torch.full((3,), 24 + i, device=dev),
+                                         caches, backend=backend)
+            steps.append(logits)
+        grew = flash_decode.launches - before
+        assert grew == (4 * cfg.n_layers * 2 if backend == "auto" else 0)
+        out[backend] = torch.stack(steps)
+    torch.testing.assert_close(out["auto"], out["ref"], rtol=1e-5, atol=1e-5)
+    assert torch.equal(out["auto"].argmax(-1), out["ref"].argmax(-1))

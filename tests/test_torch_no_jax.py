@@ -44,7 +44,11 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.kernels.l2_topk.ref", "repro_torch.configs.base",
             "repro_torch.configs.din_cfg", "repro_torch.models.layers",
             "repro_torch.models.recsys.embedding",
-            "repro_torch.models.recsys.din"} <= set(mods)
+            "repro_torch.models.recsys.din",
+            "repro_torch.kernels.flash_decode.ops",
+            "repro_torch.kernels.flash_decode.ref",
+            "repro_torch.models.attention", "repro_torch.models.transformer",
+            "repro_torch.configs.olmo_1b"} <= set(mods)
     code = "\n".join([
         "import importlib, sys, runpy",
         "for name in ('jax', 'jaxlib', 'repro'):",
