@@ -27,7 +27,8 @@ Phases, in order; any failed check raises and the script exits nonzero:
    shape (B = 4, H = 32, Hkv = 8, S = 8,192) and one long_500k layer
    (B = 1, S = 524,288); times by CUDA events beside the plain version, a
    PyTorch yardstick where one exists, and the least time the card could
-   take (`bound_ms`);
+   take (`bound_ms`); for flash-decode also the bytes of its bound over
+   its time (GB/s) and their share of the card's 3.35 TB/s;
 4. query path: `paper_dataset("sift-like")` at `--n` with exact top-100
    ground truth, an exact kNN graph at BAMG's serving width R = 32, PQ
    trained and encoded on the card, and 1,024 queries served in batches of
@@ -1020,13 +1021,13 @@ def main(argv=None) -> int:
         log(f"  flash_decode B={b} H={h} Hkv={hkv} Dh={dh} S={s}: "
             f"2 launches per call; yardstick SDPA (bf16 out) max |diff| "
             f"{float((sdpa()[:, :, 0].float() - fd_out).abs().max()):.3g}")
+        fd_bytes = 2 * k.numel() * 2 + q.numel() * 2 + b * h * dh * 4
         fd_rows[b, h, hkv, dh, s] = dict(
             kernel=timed(lambda: flash_decode(q, k, v, n), iters=30),
             plain=timed(lambda: flash_decode_ref(q, k, v, n), iters=3,
                         dev_iters=2),
             library=timed(sdpa, iters=10, dev_iters=5),
-            bound=bound(2 * k.numel() * 2 + q.numel() * 2 + b * h * dh * 4,
-                        4 * b * h * s * dh))
+            bound=bound(fd_bytes, 4 * b * h * s * dh), bytes=fd_bytes)
         del q, k, v, kt, vt, fd_out, mask
         torch.cuda.empty_cache()
     rows["flash_decode"] = fd_rows[main_fd]
@@ -1055,6 +1056,15 @@ def main(argv=None) -> int:
             f"{fmt(row['kernel'])} | plain {fmt(row['plain'])} | library "
             f"SDPA {fmt(row['library'])} | bound {row['bound'][0] * 1e3:.3f} "
             f"us ({row['bound'][1]}) | {card}")
+        # the bound's bytes over the kernel's time, against the data sheet
+        t = row["kernel"]
+        ms = t["device"] if t["device"] is not None else t["call"]
+        rate = row["bytes"] / (ms * 1e-3)
+        log(f"  flash_decode B={b} H={h} Hkv={hkv} Dh={dh} S={s} bf16 "
+            f"achieved {rate / 1e9:.1f} GB/s "
+            f"({'device' if t['device'] is not None else 'per-call'} ms "
+            f"{ms:.4f}), {100 * rate / HBM_BYTES_PER_S:.2f}% of 3.35 TB/s "
+            f"| {card}")
     del adj, codes, nb, cand_codes, pool, got, want, kw
     torch.cuda.empty_cache()
 

@@ -17,25 +17,61 @@ import torch
 from .. import _build
 from .ref import flash_decode_ref
 
-MAX_DH = 256          # each of the kernel's 128 threads owns <= 2 columns
-TILE = 32             # positions a CTA stages at a time
-HEADS_PER_CTA = 8     # query heads of one kv head that one CTA serves
-MAX_SPLITS = 1024     # partials per (b, h) that the combine merges
-_TARGET_CTAS = 132 * 16   # about 16 CTAs per SM of the H100's 132
-_MIN_TILES = 4        # positions a split takes at least: 4 tiles
+MAX_DH = 256          # a row is at most 32 lanes of two 16-byte pieces
+WARPS = 4             # warps of a CTA, each with its own ring
+PASSES = 4            # row passes of a warp per ring stage
+STAGES = 3            # depth of each warp's ring of K and V stages
+HEADS_PER_CTA = 4     # query heads of one kv head that one CTA serves
+MAX_SPLITS = 1024     # CTAs along S per (b, kv head group)
+WAVES = 2             # whole waves of resident CTAs the grid aims at
+SMS = 132             # the H100's SMs
+SMEM_PER_SM = 233472  # shared memory of an SM (228 KB) ...
+SMEM_PER_CTA = 1024   # ... less 1 KB the card reserves for each CTA
+MAX_THREADS_PER_SM = 2048
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def split_plan(b: int, hkv: int, g: int, s: int) -> tuple[int, int]:
-    """(n_split, chunk): how the kernel splits S positions over CTAs.  The
-    grid has B * Hkv * ceil(G / 8) CTAs per split; n_split brings it to
-    about _TARGET_CTAS, each split a whole number of 32-position tiles
-    (at least 4 where S allows), at most MAX_SPLITS."""
+def row_lanes(dh: int, itemsize: int) -> tuple[int, int]:
+    """(nv, lpr): 16-byte pieces a lane holds of a Dh row and lanes that
+    hold a row, as the kernel lays them out: lpr the power of two at or
+    above the row's pieces, at most 32, two pieces a lane past 32."""
+    pieces = -(-dh * itemsize // 16)
+    if pieces > 32:
+        return 2, 32
+    return 1, 1 << (pieces - 1).bit_length()
+
+
+def stage_rows(dh: int, itemsize: int) -> int:
+    """Positions a warp takes per ring stage: PASSES passes of 32 / lpr
+    rows (8 at Dh = 128 in bf16)."""
+    return PASSES * 32 // row_lanes(dh, itemsize)[1]
+
+
+def ctas_per_sm(dh: int, itemsize: int) -> int:
+    """CTAs an SM holds at once: the rings' shared memory binds (the
+    kernel's __launch_bounds__ keeps its registers within it)."""
+    nv = row_lanes(dh, itemsize)[0]
+    smem = WARPS * STAGES * 2 * PASSES * nv * 32 * 16
+    return min(SMEM_PER_SM // (smem + SMEM_PER_CTA),
+               MAX_THREADS_PER_SM // (WARPS * 32))
+
+
+def split_plan(b: int, hkv: int, g: int, s: int, dh: int,
+               itemsize: int) -> tuple[int, int]:
+    """(n_split, chunk): how the kernel splits S positions over CTAs, from
+    the shapes alone.  The grid has B * Hkv * ceil(G / 4) CTAs per split;
+    n_split makes it WAVES whole waves of the CTAs resident on the card
+    (SMS * ctas_per_sm), or one split where that many groups already
+    fill them (two waves, so that a CTA whose row ends early frees its
+    slot for another).  A chunk is whole tiles of WARPS stages (every warp a stage),
+    at least STAGES tiles where S allows (every ring full), at most
+    MAX_SPLITS splits."""
     groups = b * hkv * -(-g // HEADS_PER_CTA)
-    tiles = -(-s // TILE)
-    n = -(-_TARGET_CTAS // max(groups, 1))
-    n = max(1, min(n, -(-tiles // _MIN_TILES), MAX_SPLITS))
-    chunk = -(-tiles // n) * TILE
+    tile = WARPS * stage_rows(dh, itemsize)
+    tiles = -(-s // tile)
+    n = WAVES * SMS * ctas_per_sm(dh, itemsize) // max(groups, 1)
+    n = max(1, min(n, -(-tiles // STAGES), MAX_SPLITS))
+    chunk = -(-tiles // n) * tile
     return -(-s // chunk), chunk
 
 
@@ -75,7 +111,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, h, dh), dtype=torch.float32, device=dev)
     if b == 0:
         return out
-    n_split, chunk = split_plan(b, hkv, h // hkv, s)
+    n_split, chunk = split_plan(b, hkv, h // hkv, s, dh, k.element_size())
     part_m = torch.empty((b, h, n_split), dtype=torch.float32, device=dev)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((b, h, n_split, dh), dtype=torch.float32,

@@ -283,7 +283,11 @@ def test_engine_backends_agree_on_card(dev):
     (2, 8, 2, 120, 333, "bf16", "random"), (3, 4, 4, 16, 77, "bf16", "one"),
     (2, 8, 1, 256, 513, "bf16", "full"), (3, 8, 2, 64, 300, "bf16", "zero"),
     (3, 8, 2, 64, 300, "f32", "past_s"), (2, 64, 2, 64, 100, "f32", "random"),
-    (4, 32, 8, 128, 8192, "bf16", "full")])
+    (4, 32, 8, 128, 8192, "bf16", "full"),
+    # G = 1, 4 and 8 at Dh = 128 in bf16
+    (3, 4, 4, 128, 2000, "bf16", "random"),
+    (3, 16, 4, 128, 2000, "bf16", "random"),
+    (3, 32, 4, 128, 2000, "bf16", "random")])
 def test_flash_decode_kernel_matches_plain(dev, b, h, hkv, dh, s, dtype,
                                            lens):
     """Within atol 1e-5: G = 1 to 32, Dh = 16 to 256, ragged S, f32 and
@@ -306,6 +310,66 @@ def test_flash_decode_kernel_matches_plain(dev, b, h, hkv, dh, s, dtype,
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     if lens == "zero":
         assert (got == 0).all()
+
+
+def _fd_close(q, k, v, n):
+    before = flash_decode.launches
+    got = flash_decode(q, k, v, n)
+    assert flash_decode.launches == before + 2
+    torch.testing.assert_close(got, flash_decode_ref(q, k, v, n), rtol=0,
+                               atol=1e-5)
+    return got
+
+
+def _fd_bf16(b, h, hkv, s, seed):
+    """bf16 q, k, v at Dh = 128 on the card."""
+    dh = 128
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, h, dh), device="cuda", generator=gen).bfloat16()
+    k, v = (torch.randn((b, s, hkv, dh), device="cuda",
+                        generator=gen).bfloat16() for _ in range(2))
+    return q, k, v
+
+
+# Dh = 128 in bf16: a warp's ring stage is 8 positions, a CTA's tile
+# (one stage per warp) 32; the rings of all 4 warps are full at 96
+@pytest.mark.parametrize("s,lens", [
+    (7, "S"), (8, "S"), (9, "S"),                 # around one stage
+    (95, "S"), (96, "S"), (97, "S"),              # around every ring full
+    (None, "S"),                    # the last split shorter than a stage
+    (1024, "split+3"),              # cache_len 3 positions into a split
+    (1000, "mid"), (1000, "edge")])  # ending mid-stage, on a stage edge
+def test_flash_decode_ring_edges(dev, s, lens):
+    """The ring's edges within atol 1e-5 of the plain version (B = 2,
+    Hkv = 2, G = 1)."""
+    from repro_torch.kernels.flash_decode.ops import split_plan, stage_rows
+    rows = stage_rows(128, 2)
+    if s is None:                   # the first S from 800 with a short tail
+        s = next(t for t in range(800, 2000)
+                 if 0 < t - (split_plan(2, 2, 1, t, 128, 2)[0] - 1)
+                 * split_plan(2, 2, 1, t, 128, 2)[1] < rows)
+    q, k, v = _fd_bf16(2, 2, 2, s, seed=s)
+    n_split, chunk = split_plan(2, 2, 1, s, 128, 2)
+    n = {"S": [s, s], "split+3": [chunk + 3, 2 * chunk + 1],
+         "mid": [5 * rows + 4, 17 * rows + 3],
+         "edge": [5 * rows, 17 * rows]}[lens]
+    _fd_close(q, k, v, torch.tensor(n, dtype=torch.int32, device=dev))
+
+
+def test_flash_decode_misaligned_base_takes_element_path(dev):
+    """K and V contiguous but viewed one element into their storage (not
+    16-byte aligned): the element-load path, within atol 1e-5."""
+    b, h, hkv, s, dh = 2, 8, 2, 300, 128
+    q, k, v = _fd_bf16(b, h, hkv, s, seed=3)
+    kk, vv = (torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+              for t in (k, v))
+    kk[1:], vv[1:] = k.flatten(), v.flatten()
+    k1, v1 = kk[1:].view(k.shape), vv[1:].view(v.shape)
+    assert k1.is_contiguous() and k1.data_ptr() % 16 != 0
+    n = torch.tensor([300, 171], dtype=torch.int32, device=dev)
+    got = _fd_close(q, k1, v1, n)
+    torch.testing.assert_close(got, flash_decode(q, k, v, n), rtol=0,
+                               atol=1e-5)
 
 
 def test_flash_decode_limits_raise(dev):

@@ -10,8 +10,9 @@ side, so they are held to the same bar.
 At the edges the port follows the Pallas kernel: cache_len = 0 gives zeros
 (JAX's plain version gives NaN there), and cache_len > S means all S
 positions (JAX's plain version; its Pallas path also counts the zero rows
-it pads S with).  The split-KV kernel's merge is emulated here with the
-wrapper's own `split_plan` and checked against the plain version.
+it pads S with).  The split-KV kernel's per-warp rings and merge are
+emulated here with the wrapper's own `split_plan` and `stage_rows` and
+checked against the plain version.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +23,9 @@ from repro.kernels.flash_decode import flash_decode as jax_flash_decode
 from repro.kernels.flash_decode import flash_decode_ref as jax_flash_decode_ref
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
 from repro_torch.kernels.flash_decode.ops import (HEADS_PER_CTA, MAX_SPLITS,
-                                                  TILE, split_plan)
+                                                  SMS, WARPS, WAVES,
+                                                  ctas_per_sm,
+                                                  split_plan, stage_rows)
 from repro_torch.kernels.flash_decode.ref import NEG_INF
 
 RNG = np.random.default_rng(14)
@@ -137,15 +140,25 @@ def test_flash_decode_scale_and_gqa_head_map():
                                        atol=1e-6)
 
 
+def _merge(parts):
+    """Log-sum-exp merge of unnormalised (m, l, acc) partials."""
+    m_star = max(p_[0] for p_ in parts)
+    return (m_star, sum(p_[1] * np.exp(p_[0] - m_star) for p_ in parts),
+            sum(p_[2] * np.exp(p_[0] - m_star) for p_ in parts))
+
+
 def _split_emulation(q, k, v, lens, scale=None):
     """The kernel's algorithm in numpy (float64): per split of
-    `split_plan`, an online softmax over 32-position tiles giving
-    unnormalised (m, l, acc), then the log-sum-exp combine."""
+    `split_plan`, the split's stages of `stage_rows` positions dealt to
+    WARPS warps in turn, each warp an online softmax over its stages giving
+    its own unnormalised (m, l, acc); the warps merged into the split's
+    partial, then the log-sum-exp combine of the n_split partials."""
     b, h, dh = q.shape
     s, hkv = k.shape[1], k.shape[2]
     g = h // hkv
     scale = dh ** -0.5 if scale is None else scale
-    n_split, chunk = split_plan(b, hkv, g, s)
+    n_split, chunk = split_plan(b, hkv, g, s, dh, k.itemsize)
+    rows = stage_rows(dh, k.itemsize)
     out = np.zeros((b, h, dh))
     for bb in range(b):
         n_len = min(max(int(lens[bb]), 0), s)
@@ -154,21 +167,23 @@ def _split_emulation(q, k, v, lens, scale=None):
             qs = q[bb, hh].astype(np.float64) * scale
             parts = []
             for sp in range(n_split):
-                m, l, acc = NEG_INF, 0.0, np.zeros(dh)
-                for t0 in range(sp * chunk, min(sp * chunk + chunk, n_len),
-                                TILE):
-                    t1 = min(t0 + TILE, sp * chunk + chunk, n_len)
-                    sc = k[bb, t0:t1, n] @ qs
-                    m_new = max(m, sc.max())
-                    p = np.exp(sc - m_new)
-                    corr = np.exp(m - m_new)
-                    l = l * corr + p.sum()
-                    acc = acc * corr + p @ v[bb, t0:t1, n]
-                    m = m_new
-                parts.append((m, l, acc))
-            m_star = max(p_[0] for p_ in parts)
-            l_star = sum(p_[1] * np.exp(p_[0] - m_star) for p_ in parts)
-            o = sum(p_[2] * np.exp(p_[0] - m_star) for p_ in parts)
+                lo, hi = sp * chunk, min(sp * chunk + chunk, n_len)
+                stages = list(range(lo, hi, rows))
+                warps = []
+                for w in range(WARPS):
+                    m, l, acc = NEG_INF, 0.0, np.zeros(dh)
+                    for t0 in stages[w::WARPS]:
+                        t1 = min(t0 + rows, hi)
+                        sc = k[bb, t0:t1, n] @ qs
+                        m_new = max(m, sc.max())
+                        p = np.exp(sc - m_new)
+                        corr = np.exp(m - m_new)
+                        l = l * corr + p.sum()
+                        acc = acc * corr + p @ v[bb, t0:t1, n]
+                        m = m_new
+                    warps.append((m, l, acc))
+                parts.append(_merge(warps))
+            m_star, l_star, o = _merge(parts)
             out[bb, hh] = o / max(l_star, 1e-30)
     return out
 
@@ -186,11 +201,22 @@ def test_split_kv_merge_matches_plain(b, h, hkv, dh, s, lens):
     (8, 16, 1, 32768), (1, 16, 1, 524288), (4, 8, 4, 8192), (8, 16, 1, 1056),
     (1, 1, 1, 1), (2, 2, 20, 300), (1, 1, 1, 10 ** 7), (64, 64, 1, 100)])
 def test_split_plan_covers_s_in_whole_tiles(b, hkv, g, s):
-    n_split, chunk = split_plan(b, hkv, g, s)
-    assert 1 <= n_split <= MAX_SPLITS and chunk % TILE == 0
+    """At Dh = 128 in bf16 (the serving caches): whole tiles of one stage
+    per warp, S covered, and a grid of at most WAVES whole waves of
+    resident CTAs that, at the serving shapes, no further split would fit
+    in."""
+    dh, itemsize = 128, 2
+    n_split, chunk = split_plan(b, hkv, g, s, dh, itemsize)
+    tile = WARPS * stage_rows(dh, itemsize)
+    assert stage_rows(dh, itemsize) == 8 and ctas_per_sm(dh, itemsize) == 4
+    assert 1 <= n_split <= MAX_SPLITS and chunk % tile == 0
     assert (n_split - 1) * chunk < s <= n_split * chunk
-    if s in (32768, 524288):  # the serving shapes fill the card's 132 SMs
-        assert b * hkv * -(-g // HEADS_PER_CTA) * n_split >= 132 * 8
+    groups = b * hkv * -(-g // HEADS_PER_CTA)
+    wave = WAVES * SMS * ctas_per_sm(dh, itemsize)
+    if groups <= wave:
+        assert groups * n_split <= wave
+    if s in (32768, 524288):  # the serving shapes fill the wave
+        assert groups * n_split > wave - groups
 
 
 def test_flash_decode_dispatch():
