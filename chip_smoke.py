@@ -16,8 +16,9 @@ Phases, in order; any failed check raises and the script exits nonzero:
    adjacency pads, rows that run out of frontier, integer-valued tables and
    vectors that force (dist, id) ties, tables above 48 KB of shared memory,
    D = 960 query rows); for the L2 top-k kernel, bitwise, odd B, N not a
-   multiple of its chunk, k = 1, k = N and k > N (+inf / -1), integer data
-   (ties), D = 1 and 960 and bf16 inputs, then DIN's retrieval shapes
+   multiple of its tile, k = 1, k = N and k > N (+inf / -1), integer data
+   (ties), D = 1 and 960, bf16 inputs and a base of identical rows, each
+   call making the launches `plan` counts, then DIN's retrieval shapes
    (B = 1 and 64, N = 1,048,576, D = 18, k = 1024) and the kernel bench's
    (B = 8, N = 100,000, D = 128, k = 100); for flash-decode, within atol
    1e-5 of its plain version, the reference's sweep, G = 1, 4 and 32,
@@ -70,7 +71,10 @@ Phases, in order; any failed check raises and the script exits nonzero:
    its margin exceeds 1e-3; then decode_32k at B = 8 (the cell's 128 would
    need a 550 GB cache): a 32,768-slot bf16 cache filled N(0, 1) below
    position 32,767 and 16 steps there under both backends, with the step
-   time, tokens/s, the card's busy share and the kernel's part of it.
+   time, tokens/s, the card's busy share and the kernel's part of it;
+   then the same 16 steps once more as an f32 oracle (the bf16 weights
+   cast up, the plain version, the same cache, the kernel run's tokens),
+   with max and mean |auto - oracle| and |ref - oracle|.
 
 The last lines are the card's nvidia-smi line, one JSON object with every
 kernel's numbers, and `{"ok": true, "device": {...}}`.  The script exits
@@ -239,13 +243,14 @@ def din_serving(dev, card: str, reset_counts, read_counts) -> int:
     log(f"  retrieval_cand auto, B=1: card busy {dev_ms:.4f} ms per call "
         f"({runs:.1f} kernel runs; l2_topk {l2_ms:.4f} ms) = "
         f"{dev_ms / call_med['auto']:.2%} of the per-call median")
-    per_call = len(plan(n_cand, cfg.rerank_k))
+    per_call = [plan(len(b["hist_len"]), n_cand, cfg.embed_dim,
+                     min(cfg.rerank_k, n_cand)).launches for b in requests]
     want = {name: 0 for name in launches["auto"]}
     if launches["ref"] != want:
         raise AssertionError(f"ref launched kernels: {launches['ref']}")
-    if launches["auto"] != dict(want, l2_topk=len(requests) * per_call):
+    if launches["auto"] != dict(want, l2_topk=sum(per_call)):
         raise AssertionError(f"auto launches {launches['auto']}: expected "
-                             f"l2_topk = {len(requests)} x {per_call} only")
+                             f"l2_topk = {sum(per_call)} only")
     err = 0.0
     for (s_a, sc_a, i_a), (s_r, sc_r, i_r) in zip(out["auto"], out["ref"]):
         if not (torch.equal(s_a, s_r) and torch.equal(i_a, i_r)):
@@ -269,7 +274,8 @@ def din_serving(dev, card: str, reset_counts, read_counts) -> int:
     log(f"retrieval_cand: auto == ref on all {len(requests)} calls "
         f"(shortlists and items equal, scores max |diff| {err:.3g}); "
         f"l2_topk launched {launches['auto']['l2_topk']} times under auto "
-        f"({per_call} per call), 0 under ref | phase 6 took "
+        f"({per_call[0]} per call at B=1, {per_call[-1]} at B=64), 0 under "
+        f"ref | phase 6 took "
         f"{time.perf_counter() - t_phase:.1f} s | {card}")
     return launches["auto"]["l2_topk"]
 
@@ -505,7 +511,28 @@ def lm_serving(dev, card, reset_counts, read_counts) -> int:
         f"{agreed} | peak device memory {peak:.2f} GiB | launches auto "
         f"{launches['auto']['flash_decode']}, ref 0 | phase 7 took "
         f"{time.perf_counter() - t_phase:.1f} s | {card}")
-    del ck, cv, runs, params
+    # the logits watch: both backends against an f32 oracle of the same 16
+    # teacher-forced steps -- the bf16 weights cast up to f32 (exact), the
+    # plain version, the same bf16 cache, fed the kernel run's tokens
+    oracle_p = compute_cast(params, torch.float32)
+    reset_counts()
+    oracle = decode(oracle_p, dataclasses.replace(cfg, dtype="float32"),
+                    (ck, cv, lens), logits, at_end, n_steps, "ref",
+                    runs["auto"][1])[0]
+    expect(read_counts(), 0)
+    del oracle_p
+    gap = {}
+    for backend in ("auto", "ref"):
+        d = (runs[backend][0] - oracle).abs()
+        gap[backend] = (float(d.max()), float(d.mean()))
+    near = all(gap["auto"][i] <= 1.1 * gap["ref"][i] for i in (0, 1))
+    log(f"LM decode_32k f32 oracle (bf16 weights cast up, plain version, "
+        f"same cache and tokens, {n_steps} steps): |auto - oracle| max "
+        f"{gap['auto'][0]:.4g} mean {gap['auto'][1]:.4g}; |ref - oracle| max "
+        f"{gap['ref'][0]:.4g} mean {gap['ref'][1]:.4g}; auto "
+        f"{'within 10% of ref or below' if near else 'more than 10% above ref'}"
+        f" | {card}")
+    del ck, cv, runs, params, oracle
     torch.cuda.empty_cache()
     return req_launches + launches["auto"]["flash_decode"]
 
@@ -901,7 +928,20 @@ def main(argv=None) -> int:
             x = torch.randn((n + b, d), device=dev, generator=gen)
         if kind == "bf16":
             x = x.bfloat16()
+        if kind == "identical":
+            x[:n] = x[0]
         return x[n:].contiguous(), x[:n].contiguous()
+
+    def l2_launch(q, base, k):
+        """The kernel's result, after checking that it made the launches
+        that `plan` counts."""
+        want = plan(q.shape[0], base.shape[0], q.shape[1], k).launches
+        before = l2_topk.launches
+        got = l2_topk(q, base, k)
+        if l2_topk.launches - before != want:
+            raise AssertionError(f"l2_topk made {l2_topk.launches - before} "
+                                 f"launches, plan says {want}")
+        return got
 
     for b, n, d, k, kind in ((37, 20001, 18, 100, "integer"),
                              (5, 777, 4, 1, "normal"),
@@ -910,16 +950,21 @@ def main(argv=None) -> int:
                              (3, 5000, 1, 64, "integer"),
                              (2, 3000, 960, 8, "normal"),
                              (3, 9000, 64, 16, "bf16"),
-                             (7, 65537, 18, 1024, "normal")):
+                             (7, 65537, 18, 1024, "normal"),
+                             (2, 1 << 16, 18, 1024, "identical")):
         q, base = l2_case(b, n, d, kind)
-        got = l2_topk(q, base, k)
+        got = l2_launch(q, base, k)
         same(f"l2_topk B={b} N={n} D={d} k={k} {kind}", got,
              l2_topk_ref(q, base, k), exact=True)
         if k > n and not ((got[1][:, n:] == -1).all()
                           and torch.isinf(got[0][:, n:]).all()):
             raise AssertionError("l2_topk: no +inf / -1 past N")
-    log("kernel checks l2_topk (ragged, ties, k > N, D = 1 and 960, bf16): "
-        "ok, bitwise")
+        if kind == "identical" and not torch.equal(
+                got[1], torch.arange(k, dtype=torch.int32, device=dev)
+                .expand(b, k)):
+            raise AssertionError("l2_topk: identical rows not in id order")
+    log("kernel checks l2_topk (ragged, ties, k > N, D = 1 and 960, bf16, "
+        "identical rows): ok, bitwise")
     # DIN's retrieval shapes (B = 1 is the retrieval_cand cell; N, D and
     # k are the item table's rows, its width and rerank_k) and the kernel
     # bench's; each byte counted once, the distances' operations as
@@ -929,13 +974,14 @@ def main(argv=None) -> int:
     l2_rows = {}
     for b, n, d, k in (main_l2, (64,) + main_l2[1:], (8, 100_000, 128, 100)):
         q, base = l2_case(b, n, d, "normal")
-        got = l2_topk(q, base, k)
+        got = l2_launch(q, base, k)
         errs["l2_topk"] = max(errs["l2_topk"], same(
             f"l2_topk B={b} N={n} D={d} k={k}", got,
             l2_topk_ref(q, base, k), exact=True))
         lib = torch.topk(torch.cdist(q, base), k, largest=False)
-        log(f"  l2_topk B={b} N={n} D={d} k={k}: {len(plan(n, k))} "
-            f"launches per call; yardstick topk(cdist) ids equal to the "
+        log(f"  l2_topk B={b} N={n} D={d} k={k}: "
+            f"{plan(b, n, d, k).launches} launches per call ({plan(b, n, d, k)}"
+            f"); yardstick topk(cdist) ids equal to the "
             f"kernel's at {float((lib.indices == got[1]).float().mean()):.4f}"
             f" of positions")
         l2_rows[b, n, d, k] = dict(

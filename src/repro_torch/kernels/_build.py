@@ -42,9 +42,9 @@ _SIGNATURES = {
     "beam_hops_adc_smem_bytes": (ctypes.c_size_t, [_I] * 4),
     "beam_hops_l2_launch": (_I, [_P] * 16 + [_I] * 5 + [_P]),
     "beam_hops_l2_smem_bytes": (ctypes.c_size_t, [_I] * 3),
-    "l2_topk_rows_launch": (_I, [_P] * 5 + [_I] * 6 + [_P]),
-    "l2_topk_keys_launch": (_I, [_P] * 4 + [_I] * 5 + [_P]),
-    "l2_topk_smem_bytes": (ctypes.c_size_t, [_I] * 2),
+    "l2_topk_launch": (_I, [_P] * 7 + [_I] * 9 + [_P]),
+    "l2_topk_scan_smem_bytes": (ctypes.c_size_t, [_I] * 4),
+    "l2_topk_bits_ld": (_I, [_I]),
     "flash_decode_split_launch": (_I, [_P] * 7 + [_I] * 9
                                   + [ctypes.c_float, _P]),
     "flash_decode_combine_launch": (_I, [_P] * 4 + [_I] * 3 + [_P]),

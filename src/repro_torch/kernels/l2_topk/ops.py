@@ -5,7 +5,8 @@
 `l2_topk_pallas`).  backend: "cuda" launches the kernel (CUDA tensors
 only), "ref" runs the plain version (`ref.l2_topk_ref`), "auto" launches
 the kernel for CUDA tensors and runs the plain version for CPU tensors.
-Every pass of the kernel is one launch, counted in `l2_topk.launches`.
+A call makes the four launches of `STAGES` (`plan(...).launches`), each
+counted in `l2_topk.launches`.
 
 `sq_l2_rowwise` and `l2_topk_rowwise` port the reference's functions of
 the same names; they are plain jnp outside any Pallas kernel there, and
@@ -13,41 +14,57 @@ plain PyTorch here.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from .. import _build
 from .ref import l2_topk_ref
 
-MAX_K = 1024        # the kernel's chunks hold at least 2k keys
-_MAX_CHUNK = 8192   # keys sorted by one CTA: 64 KB of shared memory
-_MAX_GRID_Y = 65535
+MAX_K = 1024        # the resolve CTA sorts at most 1,024 selected keys
+BINS = 2048          # the first radix digit: bits 30..20 of bits(dist)
+WORKSPACE = BINS + 8  # int32 a query: histogram, then t, nb, nt, counters
+QUERIES_PER_CTA = 8  # queries a scan CTA scores each staged tile against
+THREADS = 256       # a scan CTA's threads: one per staged row
+_TILE_BYTES = 64 * 1024    # shared memory a scan CTA stages base rows in
+_TARGET_CTAS = 8 * 132     # 8 scan CTAs on each of the H100's 132 SMs
+_MAX_STRIPE = 65535        # rows a CTA's 16-bit histogram counts can hold
+_MAX_GRID_Y = 65535        # the emit grid's second dimension is B
+STAGES = ("scan", "threshold", "emit", "resolve")
 
 
-def _pow2_at_least(x: int) -> int:
-    return 1 << max(0, x - 1).bit_length()
+@dataclass(frozen=True)
+class Plan:
+    """The kernel's launch geometry for (B, N, D, k).
+
+    ceil(B / 8) x stripes scan CTAs: CTA (g, s) scores queries [8g, 8g + 8)
+    against base rows [s * stripe, (s + 1) * stripe), staged `tile` rows at
+    a time in rows of `stride` floats (odd, so that a warp's 32 rows fall
+    in 32 banks); emit_blocks x B emit CTAs stream the stored distances.
+    `launches` is the number of kernel launches per call: the four of
+    `STAGES`, or none when B = 0."""
+    stripes: int
+    stripe: int
+    tile: int
+    stride: int
+    emit_blocks: int
+    launches: int
 
 
-def chunk_size(m: int, k: int) -> int:
-    """Keys one CTA sorts (a power of two) when a pass selects from m per
-    row: at least 2k, so each pass cuts a row's keys by C / k or more; 8k
-    where that fits (a factor of 8 per pass) and at least 2,048, but no
-    more than m needs."""
-    lo = _pow2_at_least(2 * k)
-    c = min(_MAX_CHUNK, max(2048, _pow2_at_least(8 * k)))
-    return max(lo, min(c, _pow2_at_least(m)))
-
-
-def plan(n: int, k: int) -> list[tuple[int, int]]:
-    """The kernel's passes for N base rows and k: [(C, S)] per pass.  Pass
-    1 sorts S = ceil(N / C) chunks of C rows per query; each later pass
-    chunks of C of the m = S_prev * k keys left, until one chunk
-    remains."""
-    m, passes = n, []
-    while not passes or passes[-1][1] > 1:
-        c = chunk_size(m, k)
-        passes.append((c, max(1, -(-m // c))))
-        m = passes[-1][1] * k
-    return passes
+def plan(b: int, n: int, d: int, k: int) -> Plan:
+    """Launch geometry and launch count of one call (k does not change it:
+    every k takes the same four launches)."""
+    stride = d | 1
+    tile = max(1, min(THREADS, _TILE_BYTES // (4 * stride)))
+    groups = max(1, -(-b // QUERIES_PER_CTA))
+    tiles = max(1, -(-n // tile))
+    stripes = min(tiles, max(1, -(-_TARGET_CTAS // groups)))
+    stripe = min(-(-tiles // stripes), _MAX_STRIPE // tile) * tile
+    stripes = max(1, -(-n // stripe))
+    emit_blocks = min(max(1, -(-n // (4 * THREADS))),
+                      max(1, -(-4 * _TARGET_CTAS // max(b, 1))))
+    return Plan(stripes, stripe, tile, stride, emit_blocks,
+                len(STAGES) if b > 0 else 0)
 
 
 def l2_topk(queries: torch.Tensor, base: torch.Tensor, k: int,
@@ -73,13 +90,12 @@ def l2_topk(queries: torch.Tensor, base: torch.Tensor, k: int,
     if n >= 2 ** 31:
         raise ValueError(f"l2_topk kernel takes N < 2^31 (int32 ids), "
                          f"got {n}")
-    passes = plan(n, k)
-    (c, s), later = passes[0], passes[1:]
-    if s > _MAX_GRID_Y:
-        raise ValueError(f"l2_topk kernel takes N <= {_MAX_GRID_Y * c} at "
-                         f"k = {k}, got {n}")
+    if b > _MAX_GRID_Y:
+        raise ValueError(f"l2_topk kernel takes B <= {_MAX_GRID_Y}, got {b}")
+    p = plan(b, n, d, k)
     lib = _build.library()
-    smem = lib.l2_topk_smem_bytes(c, d)
+    smem = lib.l2_topk_scan_smem_bytes(d, p.tile, p.stride,
+                                       min(b, QUERIES_PER_CTA))
     if smem > _build.MAX_SMEM_BYTES:
         raise ValueError(f"l2_topk kernel at D = {d} needs {smem} bytes of "
                          f"shared memory; the limit is "
@@ -88,26 +104,19 @@ def l2_topk(queries: torch.Tensor, base: torch.Tensor, k: int,
     ids = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0:
         return dists, ids
-
-    def keys_for(grid):     # None on the last pass: it writes dists, ids
-        return (None if grid == 1 else
-                torch.empty((b, grid, k), dtype=torch.int64, device=dev))
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    out = keys_for(s)
-    _build.launch("l2_topk", "l2_topk_rows_launch", dev, q.data_ptr(),
-                  x.data_ptr(), ptr(out), dists.data_ptr(), ids.data_ptr(),
-                  b, n, d, c, s, k)
-    _build.count(l2_topk)
-    for c, s_next in later:
-        keys, out = out, keys_for(s_next)
-        _build.launch("l2_topk", "l2_topk_keys_launch", dev, keys.data_ptr(),
-                      ptr(out), dists.data_ptr(), ids.data_ptr(), b, s * k,
-                      c, s_next, k)
+    # per query: the first digit's histogram, then t, nb, nt and the emit
+    # counters (zeroed in the C entry point); bits(dist) of every key, in
+    # rows padded to 16 bytes; the emitted keys
+    ws = torch.empty((b, WORKSPACE), dtype=torch.int32, device=dev)
+    dist_bits = torch.empty((b, lib.l2_topk_bits_ld(n)), dtype=torch.int32,
+                            device=dev)
+    keys = torch.empty((b, max(n, 1)), dtype=torch.int64, device=dev)
+    _build.launch("l2_topk", "l2_topk_launch", dev, q.data_ptr(),
+                  x.data_ptr(), ws.data_ptr(), dist_bits.data_ptr(),
+                  keys.data_ptr(), dists.data_ptr(), ids.data_ptr(), b, n, d,
+                  k, p.stride, p.tile, p.stripe, p.stripes, p.emit_blocks)
+    for _ in range(p.launches):     # one C call issues the four kernels
         _build.count(l2_topk)
-        s = s_next
     return dists, ids
 
 

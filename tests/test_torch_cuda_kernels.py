@@ -177,25 +177,40 @@ def test_frontier_fused_kernel_matches_plain(dev):
     (37, 20001, 18, 100, "integer"), (3, 5000, 1, 64, "integer"),
     (2, 3000, 960, 8, "normal"), (5, 777, 4, 1, "normal"),
     (4, 300, 8, 300, "integer"), (4, 300, 8, 1000, "normal"),
-    (3, 9000, 64, 16, "bf16")])
+    (3, 9000, 64, 16, "bf16"), (2, 1 << 16, 18, 1024, "identical"),
+    (3, 255, 18, 100, "normal"), (3, 256, 18, 100, "normal"),
+    (3, 257, 18, 100, "normal"), (2, 540671, 18, 64, "normal"),
+    (2, 540672, 18, 64, "normal"), (2, 540673, 18, 64, "normal"),
+    (64, 1 << 20, 18, 1024, "normal"), (5, 20001, 18, 100, "unaligned")])
 def test_l2_topk_kernel_matches_plain(dev, b, n, d, k, kind):
     """Bitwise: ragged N, odd B, k = 1, k = N, k > N (+inf / -1), ties of
-    integer data, D = 1 and 960, bf16 inputs; one launch per pass."""
+    integer data, D = 1 and 960, bf16 inputs, a base of identical rows
+    (all keys tie on distance), N one below, at and one above a tile (256
+    rows at D = 18) and a stripe (512 rows at N = 540,672, B = 2), B = 64
+    at the retrieval shape, and a base that starts 72 bytes into its
+    storage (no 16-byte loads); plan(...).launches launches a call."""
     if kind == "integer":
-        x = torch.randint(-2, 3, (n + b, d), device=dev).float()
+        x = torch.randint(-2, 3, (n + b + 1, d), device=dev).float()
     else:
-        x = torch.randn((n + b, d), device=dev)
+        x = torch.randn((n + b + 1, d), device=dev)
     if kind == "bf16":
         x = x.bfloat16()
-    base, q = x[:n].contiguous(), x[n:].contiguous()
+    if kind == "identical":
+        x[:n] = x[0]
+    base, q = x[:n].contiguous(), x[n + 1:].contiguous()
+    if kind == "unaligned":
+        base = x[1:n + 1]
+        assert base.is_contiguous() and base.data_ptr() % 16 != 0
     before = l2_topk.launches
     got = l2_topk(q, base, k)
-    assert l2_topk.launches == before + len(plan(n, k))
+    assert l2_topk.launches == before + plan(b, n, d, k).launches == before + 4
     want = l2_topk_ref(q, base, k)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
     if k > n:
         assert (got[1][:, n:] == -1).all() and torch.isinf(got[0][:, n:]).all()
+    if kind == "identical":
+        assert (got[1] == torch.arange(k, device=dev, dtype=torch.int32)).all()
 
 
 def test_din_retrieval_kernel_matches_plain(dev):

@@ -18,7 +18,8 @@ import torch
 from repro.kernels.l2_topk import l2_topk as jax_l2_topk
 from repro.kernels.l2_topk import l2_topk_ref as jax_l2_topk_ref
 from repro_torch.kernels.l2_topk import l2_topk, l2_topk_ref
-from repro_torch.kernels.l2_topk.ops import MAX_K, chunk_size, plan
+from repro_torch.kernels.l2_topk.ops import (BINS, MAX_K, QUERIES_PER_CTA,
+                                            STAGES, THREADS, plan)
 from repro_torch.kernels.l2_topk.ref import sq_l2_ordered
 
 RNG = np.random.default_rng(13)
@@ -111,44 +112,87 @@ def test_l2_topk_k_above_n_pads_inf_and_minus_one(n, k):
         np.testing.assert_array_equal(i.numpy(), ji)
 
 
-def _emulate(q, x, k):
-    """The CUDA kernel's passes (`plan`) on the CPU: (dist, id) keys as
-    (bits(dist) << 32) | id in int64 (a non-negative f32's bits are below
-    2^31), a missing row as the largest key; each chunk of C keys sorted,
-    its first k kept, until one chunk remains."""
+def _emulate(q, x, k, gen):
+    """The CUDA kernel's four launches on the CPU, keys as int64
+    (bits(dist) << 32) | id (a non-negative f32's bits are below 2^31):
+    1. a histogram of each query's first digit, bits 30..20 of bits(dist);
+    2. the bin t that holds the k-th key, nb keys below it, nt in it;
+    3. the keys below t and those in t, emitted in a shuffled order (the
+       kernel's atomics give any order);
+    4. an 8-bit radix select of the k - nb smallest keys of bin t, over
+       the 20 low bits of bits(dist) and then the bits the ids use,
+       stopping when a digit's bucket is taken whole; the <= k keys
+       selected are sorted and decoded, +inf / -1 past N."""
     b, n = q.shape[0], x.shape[0]
-    missing = torch.iinfo(torch.int64).max
-    d = sq_l2_ordered(q, x)
-    keys = ((d.view(torch.int32).long() << 32)
-            | torch.arange(n, dtype=torch.int64))
-    for c, s in plan(n, k):
-        pad = s * c - keys.shape[1]
-        keys = torch.cat([keys, torch.full((b, pad), missing)], 1)
-        keys = torch.sort(keys.reshape(b, s, c), dim=2).values[:, :, :k]
-        keys = keys.reshape(b, s * k)
-    ok = keys != missing
-    dists = torch.where(ok, (keys >> 32).to(torch.int32).view(torch.float32),
-                        torch.inf)
-    return dists, torch.where(ok, keys & 0xFFFFFFFF, -1).to(torch.int32)
+    bits = sq_l2_ordered(q, x).view(torch.int32).long()
+    keys = (bits << 32) | torch.arange(n, dtype=torch.int64)
+    bins = bits >> 20
+    idb = max(1, (n - 1).bit_length())
+    dists = torch.full((b, k), torch.inf)
+    ids = torch.full((b, k), -1, dtype=torch.int32)
+    for row in range(b):
+        hist = torch.bincount(bins[row], minlength=BINS)
+        cum = hist.cumsum(0)
+        if n <= k:
+            t, nb, nt = BINS, n, 0
+        else:
+            t = int(torch.searchsorted(cum, k))     # first bin with cum >= k
+            nb, nt = int(cum[t] - hist[t]), int(hist[t])
+        perm = torch.randperm(n, generator=gen)
+        kr, br = keys[row, perm], bins[row, perm]
+        below, cand = kr[br < t], kr[br == t]
+        assert below.numel() == nb and cand.numel() == nt
+        r = min(k - nb, nt)
+        red = (((cand >> 32) & 0xFFFFF) << idb) | (cand & ((1 << idb) - 1))
+        prefix, s, rem = 0, 20 + idb, r
+        if 0 < r < nt:
+            while s > 0:
+                w = min(8, s)
+                s -= w
+                m = (red >> (s + w)) == prefix
+                h = torch.bincount((red[m] >> s) & ((1 << w) - 1),
+                                   minlength=256)
+                c = h.cumsum(0)
+                dg = int(torch.searchsorted(c, rem))
+                rem, cnt = rem - int(c[dg] - h[dg]), int(h[dg])
+                prefix = (prefix << w) | dg
+                if cnt == rem:
+                    break
+        taken = cand[(red >> s) <= prefix] if r > 0 else cand[:0]
+        assert taken.numel() == r
+        sel = torch.sort(torch.cat([below, taken])).values
+        dists[row, :sel.numel()] = (sel >> 32).to(torch.int32).view(
+            torch.float32)
+        ids[row, :sel.numel()] = (sel & 0xFFFFFFFF).to(torch.int32)
+    return dists, ids
 
 
-@pytest.mark.parametrize("b,n,d,k,integer", [
-    (3, 20000, 4, 1024, True), (2, 9000, 18, 100, False),
-    (1, 5000, 2, 1, True), (2, 300, 8, 300, True), (2, 300, 8, 301, False),
-    (5, 70000, 3, 7, True),
+@pytest.mark.parametrize("b,n,d,k,kind", [
+    (3, 20000, 4, 1024, "integer"), (2, 9000, 18, 100, "normal"),
+    (1, 5000, 2, 1, "integer"), (2, 300, 8, 300, "integer"),
+    (2, 300, 8, 301, "normal"), (5, 70000, 3, 7, "integer"),
+    (2, 3000, 6, 700, "identical"), (3, 5000, 1, 1500, "integer"),
 ])
-def test_kernel_passes_select_as_the_plain_version(b, n, d, k, integer):
-    """The kernel's chunked sort-and-keep passes, emulated, pick the
-    plain version's (dist, id) order: ragged N, k = 1, k = N, k > N, and
-    the ties of integer data."""
-    if integer:
-        q = torch.randint(-2, 3, (b, d), generator=_gen()).float()
-        x = torch.randint(-2, 3, (n, d), generator=_gen()).float()
-    else:
+def test_kernel_passes_select_as_the_plain_version(b, n, d, k, kind):
+    """The kernel's histogram, threshold, emit and radix-select passes,
+    emulated, pick the plain version's (dist, id) order bitwise: ragged N,
+    k = 1, k = N, k > N, the ties of integer data, a base of identical
+    rows (every key ties on distance: the order is by id, and the select
+    runs down to the id bits) and D = 1 integer data with the k-th key
+    inside a run of ties."""
+    if kind == "normal":
         q, x = torch.randn((b, d), generator=_gen()), torch.randn(
             (n, d), generator=_gen())
-    got = _emulate(q, x, k)
+    else:
+        q = torch.randint(-2, 3, (b, d), generator=_gen()).float()
+        x = torch.randint(-2, 3, (n, d), generator=_gen()).float()
+    if kind == "identical":
+        x = x[:1].expand(n, d).contiguous()
     want = l2_topk_ref(q, x, k)
+    if kind == "integer" and d == 1:
+        full = torch.sort(sq_l2_ordered(q, x), dim=1).values
+        assert (full[:, k - 1] == full[:, k]).all()     # k inside a tie run
+    got = _emulate(q, x, k, _gen())
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
@@ -158,19 +202,30 @@ def _gen():
     return g
 
 
-@pytest.mark.parametrize("n,k", [(1 << 20, 1024), (1 << 20, 100),
-                                 (100000, 100), (3, 5), (0, 4), (5000, 1)])
-def test_plan_reaches_one_chunk(n, k):
-    passes = plan(n, k)
-    m = n
-    for c, s in passes:
-        assert c & (c - 1) == 0 and c >= 2 * k and c * 8 <= 64 * 1024
-        assert s == max(1, -(-m // c)) and c == chunk_size(m, k)
-        m = s * k
-    assert passes[-1][1] == 1 and all(s > 1 for _, s in passes[:-1])
-    # retrieval_cand: the last pass sorts the 2,048 keys left, not 8,192
-    assert plan(1 << 20, 1024) == [(8192, 128), (8192, 16), (8192, 2),
-                                   (2048, 1)]
+@pytest.mark.parametrize("b,n,d,k", [
+    (1, 1 << 20, 18, 1024), (64, 1 << 20, 18, 1024), (8, 100000, 128, 100),
+    (2, 3, 8, 5), (0, 4, 8, 4), (1, 5000, 2, 1), (3, 3000, 960, 8),
+    (5, 0, 4, 4)])
+def test_plan_covers_the_base_in_four_launches(b, n, d, k):
+    """Every base row in exactly one stripe, stripes whole tiles, tiles in
+    the staging budget, the card filled where N allows; four launches a
+    call whatever the shapes, none at B = 0."""
+    p = plan(b, n, d, k)
+    assert p.launches == (len(STAGES) if b else 0) == (4 if b else 0)
+    assert p.stride >= d and p.stride % 2 == 1
+    assert 1 <= p.tile <= THREADS
+    assert p.tile == 1 or p.tile * p.stride * 4 <= 64 * 1024
+    assert p.stripe % p.tile == 0 and p.stripe <= 65535   # 16-bit counts
+    assert 1 <= p.emit_blocks <= max(1, -(-n // (4 * THREADS)))
+    assert p.stripes * p.stripe >= n and (n == 0 or (p.stripes - 1)
+                                          * p.stripe < n)
+    if n >= 132 * 8 * p.tile:
+        assert -(-b // QUERIES_PER_CTA) * p.stripes >= 132
+    # retrieval_cand: four launches at B = 1 and at B = 64, and at B = 1 the
+    # one query's base is split over more than 132 CTAs
+    assert plan(1, 1 << 20, 18, 1024).launches == 4
+    assert plan(64, 1 << 20, 18, 1024).launches == 4
+    assert plan(1, 1 << 20, 18, 1024).stripes >= 132
 
 
 def test_l2_topk_backends_on_cpu():
