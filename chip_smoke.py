@@ -748,11 +748,15 @@ def main(argv=None) -> int:
             f"pq_adc_rowwise B={b} R={r} M={m}", [pq_adc_rowwise(t, c)],
             [pq_adc_rowwise_ref(t, c)]))
     # beam: padded graphs with dead ends, rows without seeds, hop budgets
-    # past exhaustion, L not a warp multiple, and the limits L=1024, R=256
-    for b, n, r, m, k, l, hops, integer in (
-            (37, 5000, 24, 8, 64, 48, 40, True),
-            (19, 300, 16, 8, 16, 300, 400, True),
-            (8, 20000, 256, 64, 256, 1024, 8, False)):
+    # past exhaustion, L not a warp multiple, and the limits L=1024, R=256;
+    # then a duplicate-heavy graph (each row holds its ids twice, across
+    # two warps of candidates, and a self-loop; each pool also holds its
+    # best seed's neighbours under dists that are not their ADC scores)
+    for b, n, r, m, k, l, hops, integer, dup in (
+            (37, 5000, 24, 8, 64, 48, 40, True, False),
+            (19, 300, 16, 8, 16, 300, 400, True, False),
+            (8, 20000, 256, 64, 256, 1024, 8, False, False),
+            (37, 5000, 64, 16, 256, 64, 40, True, True)):
         adj = random_graph(n, r, pad=0.2, dead=0.05)
         codes = on_dev(rng.integers(0, k, (n, m)).astype(np.uint8))
         t = tables_for(b, m, k, integer)
@@ -760,13 +764,23 @@ def main(argv=None) -> int:
         pool = seeded_pool(t, codes, cands, 4, l)
         pool[0][::5] = -1                        # rows with no seed at all
         pool[1][::5] = torch.inf
+        if dup:
+            adj[:, r // 2:] = adj[:, :r // 2]
+            adj[:, -1] = adj[:, 0]
+            nodes = torch.arange(n, device=dev)
+            adj[nodes, nodes % r] = nodes.to(torch.int32)
+            nb = torch.where(pool[0][:, :1] >= 0,
+                             adj[pool[0][:, 0].clamp_min(0).long()], -1)
+            pool = pool_merge(*pool, nb, on_dev(
+                (rng.random(nb.shape) * m).astype(np.float32)), l)
         got = beam_hops(adj, *pool, hops, tables=t, codes=codes)
         want = beam_hops_ref(adj, *pool, hops, tables=t, codes=codes)
         errs["beam_hops"] = max(errs["beam_hops"], same(
-            f"beam_hops B={b} N={n} R={r} L={l} hops={hops}", got, want))
-        log(f"kernel check beam_hops B={b} R={r} L={l} M={m} hops={hops}: ok "
-            f"(done rows {int(got[7].sum())}/{b}, hops {got[3].min().item()}"
-            f"..{got[3].max().item()})")
+            f"beam_hops B={b} N={n} R={r} L={l} hops={hops} dup={dup}", got,
+            want, exact=True))
+        log(f"kernel check beam_hops B={b} R={r} L={l} M={m} hops={hops} "
+            f"dup={dup}: ok (done rows {int(got[7].sum())}/{b}, hops "
+            f"{got[3].min().item()}..{got[3].max().item()})")
     # exact-L2 beam: the same ragged shapes, integer vectors (ties), a
     # GIST-wide D = 960 query row, and the limits L=1024, R=256
     for b, n, r, d, l, hops, integer in (
@@ -844,7 +858,7 @@ def main(argv=None) -> int:
     got = beam_hops(adj, *pool, HOPS, tables=tables, codes=codes)
     want = beam_hops_ref(adj, *pool, HOPS, tables=tables, codes=codes)
     errs["beam_hops"] = max(errs["beam_hops"], same("beam_hops main", got,
-                                                    want))
+                                                    want, exact=True))
     # what this run's data needs: the adjacency rows of the picked nodes,
     # the code rows of their valid neighbours and the table entries those
     # codes reach, each sector once; the pools in and out; the traces
@@ -869,8 +883,12 @@ def main(argv=None) -> int:
                                           codes=codes), iters=5, dev_iters=3),
         library=None,
         bound=bound(b_bytes, valid_nbrs * M))
+    dev_ms = rows["beam_hops"]["kernel"]["device"]
     log(f"  beam_hops main: {hop_total} hops over {B} rows, "
-        f"{valid_nbrs} valid neighbours scored")
+        f"{valid_nbrs} valid neighbours scored; device "
+        + (f"{dev_ms * 1e3 / HOPS:.4f} us a hop ({HOPS} hops a row, rows in "
+           f"parallel; {card})" if dev_ms else "time not seen by the "
+           "profiler"))
 
     # the construction frontier's shapes (frontier_pools under "fused"):
     # B=256 build nodes as queries, L = ef + ef//2 = 96, 66 hops, one

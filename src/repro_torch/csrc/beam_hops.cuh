@@ -1,7 +1,9 @@
-// The fused beam-hop loop shared by the ADC (serving) and exact-L2
-// (construction) kernels, for Hopper (sm_90a).  Each kernel stages its own
-// scoring operands in shared memory and hands `hop_loop` a scorer; the
-// pick, the adjacency gather, the merge and the trace are this file's.
+// The fused beam-hop loop of the exact-L2 (construction) kernel,
+// beam_hops_l2.cu, its only user, for Hopper (sm_90a).  The kernel stages
+// its scoring operands in shared memory and hands `hop_loop` a scorer; the
+// pick, the adjacency gather, the merge and the trace are this file's.  (The
+// ADC kernel, beam_hops_adc.cu, has its own loop: hashed de-duplication and
+// merge-path ranks in place of the serial scans below.)
 //
 // It is the body of the Pallas `_hop_loop` (repro/kernels/beam_fused/
 // kernel.py) with `_merge_ranked`: one CTA per query row, one thread per

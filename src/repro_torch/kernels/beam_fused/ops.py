@@ -18,7 +18,7 @@ import torch
 from .. import _build
 from .ref import beam_hops_ref, sq_norms
 
-MAX_L = 1024    # one thread per pool slot, one block per row
+MAX_L = 1024    # one block per row (the L2 kernel: one thread per pool slot)
 MAX_R = 256
 
 

@@ -19,13 +19,27 @@ NAMES = ("pool_ids", "pool_d", "pool_exp", "hops", "trace_ids", "trace_d",
          "next_id", "done")
 
 
-def _graph(n=300, r=8, m=4, k=16, b=5, l=12, integer=False, seed=3):
+def _graph(n=300, r=8, m=4, k=16, b=5, l=12, integer=False, seed=3,
+           case="plain"):
     """Random padded graph, codes, tables and a seeded sorted pool whose
-    rows hold 0..3 seeds (a row with none has no frontier at all)."""
+    rows hold 0..3 seeds (a row with none has no frontier at all).
+
+    `case` reworks it into one of the inputs the CUDA kernel's
+    de-duplication and merge lean on: "repeat_ids" (each adjacency row
+    holds its ids twice, one three times), "self_loops" (every node is its
+    own neighbour), "nbrs_in_pool" (each pool also holds neighbours of its
+    first seed, under random dists that are not their ADC scores).
+    """
     rng = np.random.default_rng(seed)
     adj = rng.integers(0, n, (n, r)).astype(np.int32)
     adj[rng.random((n, r)) < 0.2] = -1                # padded slots
     adj[rng.random(n) < 0.05] = -1                    # dead ends
+    if case == "repeat_ids":
+        h = r // 2
+        adj[:, h:2 * h] = adj[:, :h]
+        adj[:, -1] = adj[:, 0]
+    elif case == "self_loops":
+        adj[np.arange(n), np.arange(n) % r] = np.arange(n)
     codes = rng.integers(0, k, (n, m)).astype(np.uint8)
     tables = (rng.integers(0, 4, (b, m, k)) if integer
               else rng.random((b, m, k))).astype(np.float32)
@@ -34,9 +48,14 @@ def _graph(n=300, r=8, m=4, k=16, b=5, l=12, integer=False, seed=3):
     for bi in range(b):
         s = bi % 4
         ids = rng.choice(n, s, replace=False).astype(np.int32)
-        d = (rng.integers(0, 3, s) if integer else rng.random(s))
+        if case == "nbrs_in_pool" and s:
+            nb = adj[ids[0]]
+            ids = np.concatenate([ids, np.setdiff1d(nb[nb >= 0], ids)])
+            ids = ids[:l].astype(np.int32)
+        d = (rng.integers(0, 3, len(ids)) if integer
+             else rng.random(len(ids)))
         o = np.lexsort((ids, d))
-        pool_ids[bi, :s], pool_d[bi, :s] = ids[o], d[o]
+        pool_ids[bi, :len(ids)], pool_d[bi, :len(ids)] = ids[o], d[o]
     pool_exp = np.zeros((b, l), bool)
     return adj, codes, tables, pool_ids, pool_d, pool_exp
 
@@ -65,6 +84,22 @@ def test_beam_hops_ref_matches_reference(jax_backend, integer):
                                        err_msg=name)
         else:
             np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+@pytest.mark.parametrize("jax_backend", ("ref", "interpret"))
+@pytest.mark.parametrize("case,r,l", [
+    ("repeat_ids", 8, 12), ("nbrs_in_pool", 8, 12), ("self_loops", 8, 12),
+    ("plain", 8, 40),                        # L not a multiple of 32
+    ("repeat_ids", 16, 6)])                  # L < R
+def test_beam_hops_ref_edge_cases_match_reference(jax_backend, case, r, l):
+    """The rules the CUDA kernel's hashed de-duplication and merge-path
+    merge lean on, bitwise on all 8 outputs: duplicates are dropped by id,
+    never by (dist, id); a pool entry outranks a candidate it ties."""
+    args = _graph(r=r, l=l, integer=True, case=case)
+    got, want = _run_both(args, 8, jax_backend)
+    for g, w, name in zip(got, want, NAMES):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        np.testing.assert_array_equal(g, w, err_msg=name)
 
 
 def test_beam_hops_exhausts_and_reports_done():

@@ -91,19 +91,59 @@ def _pool(tables, codes, n, l, dev):
     return ids, d, exp
 
 
-@pytest.mark.parametrize("b,n,r,m,k,l,hops,integer", [
-    (64, 100000, 32, 16, 256, 64, 32, False),
-    (37, 5000, 24, 8, 64, 48, 40, True),
-    (19, 300, 16, 8, 16, 300, 400, True),
-    (8, 20000, 256, 64, 256, 1024, 8, False)])
-def test_beam_hops_kernel_matches_plain(dev, b, n, r, m, k, l, hops, integer):
+def _edge_case(adj, pool, case, m, dev):
+    """Rework a random graph and pool into one of the inputs the kernel's
+    de-duplication and merge lean on: "repeat_ids" (each adjacency row
+    holds its ids twice, across warps where R > 32, one three times),
+    "self_loops" (every node its own neighbour), "nbrs_in_pool" (each pool
+    also holds neighbours of its best seed under random dists that are not
+    their ADC scores)."""
+    n, r = adj.shape
+    if case == "repeat_ids":
+        h = r // 2
+        adj[:, h:2 * h] = adj[:, :h]
+        adj[:, -1] = adj[:, 0]
+    elif case == "self_loops":
+        ids = torch.arange(n, device=dev)
+        adj[ids, ids % r] = ids.to(torch.int32)
+    elif case == "nbrs_in_pool":
+        ids, d, exp = pool
+        nb = torch.where(ids[:, :1] >= 0, adj[ids[:, 0].clamp_min(0).long()],
+                         -1)
+        nd = torch.as_tensor(RNG.random(nb.shape) * m, dtype=torch.float32,
+                             device=dev)
+        pool = pool_merge(ids, d, exp, nb, nd, ids.shape[1])
+    return adj, pool
+
+
+@pytest.mark.parametrize("b,n,r,m,k,l,hops,integer,case", [
+    (64, 100000, 32, 16, 256, 64, 32, False, "plain"),
+    (37, 5000, 24, 8, 64, 48, 40, True, "plain"),
+    (19, 300, 16, 8, 16, 300, 400, True, "plain"),
+    (8, 20000, 256, 64, 256, 1024, 8, False, "plain"),
+    (64, 100000, 32, 16, 256, 64, 32, True, "repeat_ids"),
+    (37, 5000, 64, 16, 256, 64, 40, True, "repeat_ids"),
+    (33, 3000, 32, 16, 256, 64, 32, False, "nbrs_in_pool"),
+    (19, 2000, 24, 8, 64, 48, 40, True, "self_loops"),
+    (21, 4000, 32, 16, 256, 129, 60, True, "repeat_ids"),   # L % 32 != 0
+    (16, 3000, 40, 8, 64, 8, 30, True, "nbrs_in_pool"),     # L < R
+    (8, 20000, 256, 64, 256, 1024, 8, True, "repeat_ids"),
+    (13, 3000, 32, 6, 64, 40, 30, True, "plain"),          # byte code loads
+    (13, 3000, 32, 16, 256, 64, 30, False, "codes_offset")])
+def test_beam_hops_kernel_matches_plain(dev, b, n, r, m, k, l, hops, integer,
+                                        case):
     adj = torch.as_tensor(RNG.integers(0, n, (n, r)), dtype=torch.int32,
                           device=dev)
     adj[torch.as_tensor(RNG.random((n, r)) < 0.2, device=dev)] = -1
     adj[torch.as_tensor(RNG.random(n) < 0.05, device=dev)] = -1
     codes = _codes((n, m), k, dev)
+    if case == "codes_offset":   # codes 1 byte into their storage
+        buf = torch.empty(n * m + 1, dtype=torch.uint8, device=dev)
+        buf[1:] = codes.reshape(-1)
+        codes = buf[1:].view(n, m)
     t = _tables(b, m, k, integer, dev)
     pool = _pool(t, codes, n, l, dev)
+    adj, pool = _edge_case(adj, pool, case, m, dev)
     before = beam_hops.launches
     got = beam_hops(adj, *pool, hops, tables=t, codes=codes)
     want = beam_hops_ref(adj, *pool, hops, tables=t, codes=codes)
