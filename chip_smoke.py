@@ -15,7 +15,9 @@ Phases, in order; any failed check raises and the script exits nonzero:
    at the main paths' shapes and on ragged cases (odd batch sizes, -1
    adjacency pads, rows that run out of frontier, integer-valued tables and
    vectors that force (dist, id) ties, tables above 48 KB of shared memory,
-   D = 960 query rows); for the L2 top-k kernel, bitwise, odd B, N not a
+   D = 960 query rows, graphs heavy with duplicate and in-pool neighbours,
+   D = 7 rows one float into their storage), both beam-hop kernels held
+   bitwise; for the L2 top-k kernel, bitwise, odd B, N not a
    multiple of its tile, k = 1, k = N and k > N (+inf / -1), integer data
    (ties), D = 1 and 960, bf16 inputs and a base of identical rows, each
    call making the launches `plan` counts, then DIN's retrieval shapes
@@ -782,31 +784,49 @@ def main(argv=None) -> int:
             f"dup={dup}: ok (done rows {int(got[7].sum())}/{b}, hops "
             f"{got[3].min().item()}..{got[3].max().item()})")
     # exact-L2 beam: the same ragged shapes, integer vectors (ties), a
-    # GIST-wide D = 960 query row, and the limits L=1024, R=256
-    for b, n, r, d, l, hops, integer in (
-            (37, 5001, 23, 8, 48, 40, True),
-            (19, 301, 15, 8, 301, 400, True),
-            (7, 3000, 32, 960, 96, 30, False),
-            (8, 20000, 256, 16, 1024, 8, False)):
+    # GIST-wide D = 960 query row, and the limits L=1024, R=256; then a
+    # duplicate-heavy graph (as for ADC, pools holding their best seed's
+    # neighbours under dists that are not their L2 scores), and D = 7 rows
+    # one float into their storage (4-byte copies, misaligned rows)
+    for b, n, r, d, l, hops, integer, case in (
+            (37, 5001, 23, 8, 48, 40, True, "plain"),
+            (19, 301, 15, 8, 301, 400, True, "plain"),
+            (7, 3000, 32, 960, 96, 30, False, "plain"),
+            (8, 20000, 256, 16, 1024, 8, False, "plain"),
+            (37, 5000, 64, 16, 64, 40, True, "dup"),
+            (13, 3000, 32, 7, 40, 30, True, "offset")):
         adj = random_graph(n, r, pad=0.2, dead=0.05)
         if integer:
             x = torch.randint(-3, 4, (n + b, d), device=dev, generator=gen)
         else:
             x = torch.randn((n + b, d), device=dev, generator=gen)
         x, q = x[:n].float().contiguous(), x[n:].float().contiguous()
+        if case == "offset":
+            buf = torch.empty(n * d + 1, device=dev)
+            buf[1:] = x.reshape(-1)
+            x = buf[1:].view(n, d)
         seeds = torch.arange(0, n, max(1, n // 64), device=dev,
                              dtype=torch.int32)[None, :].expand(b, -1)
         pool = l2_pool(x, q, seeds, l)
         pool[0][::5] = -1                        # rows with no seed at all
         pool[1][::5] = torch.inf
+        if case == "dup":
+            adj[:, r // 2:] = adj[:, :r // 2]
+            adj[:, -1] = adj[:, 0]
+            nodes = torch.arange(n, device=dev)
+            adj[nodes, nodes % r] = nodes.to(torch.int32)
+            nb = torch.where(pool[0][:, :1] >= 0,
+                             adj[pool[0][:, 0].clamp_min(0).long()], -1)
+            pool = pool_merge(*pool, nb, on_dev(
+                (rng.random(nb.shape) * 8 * d).astype(np.float32)), l)
         kw = dict(x=x, n2=sq_norms(x), queries=q)
         got = beam_hops(adj, *pool, hops, **kw)
         want = beam_hops_ref(adj, *pool, hops, **kw)
         errs["beam_hops_l2"] = max(errs["beam_hops_l2"], same(
-            f"beam_hops_l2 B={b} N={n} R={r} D={d} L={l} hops={hops}", got,
-            want, exact=True))
-        log(f"kernel check beam_hops_l2 B={b} R={r} L={l} D={d} hops={hops}:"
-            f" ok (done rows {int(got[7].sum())}/{b}, hops "
+            f"beam_hops_l2 B={b} N={n} R={r} D={d} L={l} hops={hops} "
+            f"case={case}", got, want, exact=True))
+        log(f"kernel check beam_hops_l2 B={b} R={r} L={l} D={d} hops={hops} "
+            f"case={case}: ok (done rows {int(got[7].sum())}/{b}, hops "
             f"{got[3].min().item()}..{got[3].max().item()})")
     torch.cuda.synchronize()
     log("kernel checks (ragged): ok")
@@ -883,11 +903,11 @@ def main(argv=None) -> int:
                                           codes=codes), iters=5, dev_iters=3),
         library=None,
         bound=bound(b_bytes, valid_nbrs * M))
-    dev_ms = rows["beam_hops"]["kernel"]["device"]
+    adc_ms = rows["beam_hops"]["kernel"]["device"]
     log(f"  beam_hops main: {hop_total} hops over {B} rows, "
         f"{valid_nbrs} valid neighbours scored; device "
-        + (f"{dev_ms * 1e3 / HOPS:.4f} us a hop ({HOPS} hops a row, rows in "
-           f"parallel; {card})" if dev_ms else "time not seen by the "
+        + (f"{adc_ms * 1e3 / HOPS:.4f} us a hop ({HOPS} hops a row, rows in "
+           f"parallel; {card})" if adc_ms else "time not seen by the "
            "profiler"))
 
     # the construction frontier's shapes (frontier_pools under "fused"):
@@ -930,8 +950,13 @@ def main(argv=None) -> int:
                     dev_iters=2),
         library=None,
         bound=bound(b_bytes, valid_l2 * 2 * D2))
+    hop_ms = rows["beam_hops_l2"]["kernel"]["device"]
     log(f"  beam_hops_l2 main: {int(got[3].sum())} hops over {B2} rows, "
-        f"{valid_l2} valid neighbours scored")
+        f"{valid_l2} valid neighbours scored; device "
+        + (f"{hop_ms * 1e3 / HOPS2:.4f} us a hop ({HOPS2} hops a row, rows "
+           f"in parallel), beside the ADC kernel's {adc_ms * 1e3 / HOPS:.4f} "
+           f"({card})" if hop_ms and adc_ms else "time not seen by the "
+           "profiler"))
     del x, n2, q
 
     # exact L2 top-k, bitwise: ragged N, odd B, k = 1, k = N, k > N, ties
@@ -1390,6 +1415,8 @@ def main(argv=None) -> int:
     }
     also = {"beam_hops": "src/repro/kernels/beam_fused/kernel.py:511",
             "beam_hops_l2": "src/repro/kernels/beam_fused/kernel.py:546"}
+    # the hop loop both beam-hop kernels run
+    loop = "src/repro_torch/csrc/beam_loop.cuh"
     # launches on the main paths: the query path's auto and cuda runs, and
     # the construction path's build for the exact-L2 kernel
     path_launches = {k: launches["auto"][k] + launches["cuda"][k]
@@ -1423,6 +1450,7 @@ def main(argv=None) -> int:
             "timing": timing}
         if name in also:
             entry["also_replaces"] = also[name]
+            entry["source_header"] = loop
         if name == "l2_topk":
             entry["shape"] = ("B={} N={} D={} k={} (retrieval_cand)"
                               .format(*main_l2))

@@ -1,5 +1,6 @@
 """Dispatch wrapper for the fused beam-hop kernels
-(`csrc/beam_hops_adc.cu`, `csrc/beam_hops_l2.cu`).
+(`csrc/beam_hops_adc.cu`, `csrc/beam_hops_l2.cu`), which run one hop loop
+(`csrc/beam_loop.cuh`) and differ only in their scoring.
 
 `beam_hops` runs `max_hops` fused beam hops (frontier pick, adjacency
 gather, score, ranked pool merge per hop) over a seeded sorted pool and
@@ -18,8 +19,8 @@ import torch
 from .. import _build
 from .ref import beam_hops_ref, sq_norms
 
-MAX_L = 1024    # one block per row (the L2 kernel: one thread per pool slot)
-MAX_R = 256
+MAX_L = 1024    # one block per row: a thread per candidate and per 4 pool
+MAX_R = 256     # slots, at most 256 threads
 
 
 def beam_hops(adj, pool_ids, pool_d, pool_exp, max_hops: int, *,

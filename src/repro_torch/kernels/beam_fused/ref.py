@@ -13,7 +13,8 @@ flavours the two callers need, picked by the operands given:
 
 Every hop records its frontier pick, and the loop ends with the next pick
 and a done mask.  The CUDA kernels (`csrc/beam_hops_adc.cu`,
-`csrc/beam_hops_l2.cu`) are held to this function on every output.
+`csrc/beam_hops_l2.cu`, both on the hop loop of `csrc/beam_loop.cuh`) are
+held to this function bitwise on every output.
 """
 from __future__ import annotations
 

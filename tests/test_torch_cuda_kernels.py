@@ -91,13 +91,13 @@ def _pool(tables, codes, n, l, dev):
     return ids, d, exp
 
 
-def _edge_case(adj, pool, case, m, dev):
-    """Rework a random graph and pool into one of the inputs the kernel's
+def _edge_case(adj, pool, case, scale, dev):
+    """Rework a random graph and pool into one of the inputs the kernels'
     de-duplication and merge lean on: "repeat_ids" (each adjacency row
     holds its ids twice, across warps where R > 32, one three times),
     "self_loops" (every node its own neighbour), "nbrs_in_pool" (each pool
-    also holds neighbours of its best seed under random dists that are not
-    their ADC scores)."""
+    also holds neighbours of its best seed under random dists in
+    [0, scale) that are not their scores)."""
     n, r = adj.shape
     if case == "repeat_ids":
         h = r // 2
@@ -110,8 +110,8 @@ def _edge_case(adj, pool, case, m, dev):
         ids, d, exp = pool
         nb = torch.where(ids[:, :1] >= 0, adj[ids[:, 0].clamp_min(0).long()],
                          -1)
-        nd = torch.as_tensor(RNG.random(nb.shape) * m, dtype=torch.float32,
-                             device=dev)
+        nd = torch.as_tensor(RNG.random(nb.shape) * scale,
+                             dtype=torch.float32, device=dev)
         pool = pool_merge(ids, d, exp, nb, nd, ids.shape[1])
     return adj, pool
 
@@ -176,14 +176,29 @@ def _l2_case(b, n, r, d, l, integer, dev):
     return adj, x, n2, q, (ids, dd, exp)
 
 
-@pytest.mark.parametrize("b,n,r,d,l,hops,integer", [
-    (256, 100000, 32, 128, 96, 66, False),
-    (37, 5001, 23, 8, 48, 40, True),
-    (19, 301, 15, 8, 301, 400, True),
-    (7, 3000, 32, 960, 96, 30, False),
-    (8, 20000, 256, 16, 1024, 8, False)])
-def test_beam_hops_l2_kernel_matches_plain(dev, b, n, r, d, l, hops, integer):
+@pytest.mark.parametrize("b,n,r,d,l,hops,integer,case", [
+    (256, 100000, 32, 128, 96, 66, False, "plain"),
+    (37, 5001, 23, 8, 48, 40, True, "plain"),
+    (19, 301, 15, 8, 301, 400, True, "plain"),
+    (7, 3000, 32, 960, 96, 30, False, "plain"),
+    (8, 20000, 256, 16, 1024, 8, False, "plain"),
+    (64, 20000, 32, 128, 96, 40, True, "repeat_ids"),
+    (37, 5000, 64, 16, 64, 40, True, "repeat_ids"),
+    (33, 3000, 32, 32, 64, 32, False, "nbrs_in_pool"),
+    (19, 2000, 24, 8, 48, 40, True, "self_loops"),
+    (21, 4000, 32, 16, 129, 60, True, "repeat_ids"),      # L % 32 != 0
+    (16, 3000, 40, 8, 8, 30, True, "nbrs_in_pool"),       # L < R
+    (13, 3000, 32, 7, 40, 30, True, "plain"),             # 4-byte rows
+    (13, 3000, 32, 128, 96, 30, False, "x_offset"),
+    (8, 20000, 256, 16, 1024, 8, True, "repeat_ids")])
+def test_beam_hops_l2_kernel_matches_plain(dev, b, n, r, d, l, hops, integer,
+                                           case):
     adj, x, n2, q, pool = _l2_case(b, n, r, d, l, integer, dev)
+    adj, pool = _edge_case(adj, pool, case, 8 * d, dev)
+    if case == "x_offset":   # x 1 float into its storage: misaligned rows
+        buf = torch.empty(n * d + 1, device=dev)
+        buf[1:] = x.reshape(-1)
+        x = buf[1:].view(n, d)
     before = (beam_hops.launches, beam_hops.l2_launches)
     got = beam_hops(adj, *pool, hops, x=x, n2=n2, queries=q)
     want = beam_hops_ref(adj, *pool, hops, x=x, n2=n2, queries=q)

@@ -34,13 +34,27 @@ def _corpus(n, d, integer, seed):
     return rng.normal(size=(n, d)).astype(np.float32)
 
 
-def _l2_case(n=300, r=8, d=12, b=5, l=12, integer=False, seed=3):
+def _l2_case(n=300, r=8, d=12, b=5, l=12, integer=False, seed=3,
+             case="plain"):
     """Random padded graph with dead ends, corpus, norms and queries, and
-    a seeded sorted pool whose rows hold 0..3 seeds (exact L2)."""
+    a seeded sorted pool whose rows hold 0..3 seeds (exact L2).
+
+    `case` reworks it into one of the inputs the CUDA kernel's
+    de-duplication and merge lean on: "repeat_ids" (each adjacency row
+    holds its ids twice, one three times), "self_loops" (every node is its
+    own neighbour), "nbrs_in_pool" (each pool also holds neighbours of its
+    first seed, under random dists that are not their L2 scores).
+    """
     rng = np.random.default_rng(seed)
     adj = rng.integers(0, n, (n, r)).astype(np.int32)
     adj[rng.random((n, r)) < 0.2] = -1
     adj[rng.random(n) < 0.05] = -1
+    if case == "repeat_ids":
+        h = r // 2
+        adj[:, h:2 * h] = adj[:, :h]
+        adj[:, -1] = adj[:, 0]
+    elif case == "self_loops":
+        adj[np.arange(n), np.arange(n) % r] = np.arange(n)
     x = _corpus(n, d, integer, seed + 1)
     q = _corpus(b, d, integer, seed + 2)
     n2 = (x * x).sum(1).astype(np.float32)
@@ -50,8 +64,14 @@ def _l2_case(n=300, r=8, d=12, b=5, l=12, integer=False, seed=3):
         s = bi % 4
         ids = rng.choice(n, s, replace=False).astype(np.int32)
         dd = ((x[ids] - q[bi]) ** 2).sum(1).astype(np.float32)
+        if case == "nbrs_in_pool" and s:
+            nb = adj[ids[0]]
+            extra = np.setdiff1d(nb[nb >= 0], ids)
+            ids = np.concatenate([ids, extra])[:l].astype(np.int32)
+            dd = np.concatenate([dd, rng.integers(0, 4 * d, len(extra))])
+            dd = dd[:l].astype(np.float32)
         o = np.lexsort((ids, dd))
-        pool_ids[bi, :s], pool_d[bi, :s] = ids[o], dd[o]
+        pool_ids[bi, :len(ids)], pool_d[bi, :len(ids)] = ids[o], dd[o]
     return adj, x, n2, q, pool_ids, pool_d, np.zeros((b, l), bool)
 
 
@@ -81,6 +101,23 @@ def test_beam_hops_l2_ref_matches_reference(jax_backend, integer):
     for g, w, name in zip(got, want, NAMES):
         assert g.shape == w.shape and g.dtype == w.dtype, name
         _close(g, w, integer, name)
+
+
+@pytest.mark.parametrize("jax_backend", ("ref", "interpret"))
+@pytest.mark.parametrize("case,r,l", [
+    ("repeat_ids", 8, 12), ("nbrs_in_pool", 8, 12), ("self_loops", 8, 12),
+    ("plain", 8, 40),                        # L not a multiple of 32
+    ("repeat_ids", 16, 6)])                  # L < R
+def test_beam_hops_l2_ref_edge_cases_match_reference(jax_backend, case, r, l):
+    """The rules the CUDA kernel's hashed de-duplication and merge-path
+    merge lean on, in exact-L2 mode, bitwise on all 8 outputs: duplicates
+    are dropped by id, never by (dist, id); a pool entry outranks a
+    candidate it ties."""
+    case = _l2_case(r=r, l=l, integer=True, case=case)
+    got, want = _run_both(case, 8, jax_backend)
+    for g, w, name in zip(got, want, NAMES):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        np.testing.assert_array_equal(g, w, err_msg=name)
 
 
 def test_beam_hops_l2_exhausts_and_reports_done():
