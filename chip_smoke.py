@@ -17,21 +17,24 @@ Phases, in order; any failed check raises and the script exits nonzero:
    vectors that force (dist, id) ties, tables above 48 KB of shared memory,
    D = 960 query rows, graphs heavy with duplicate and in-pool neighbours,
    D = 7 rows one float into their storage), both beam-hop kernels held
-   bitwise; for the L2 top-k kernel, bitwise, odd B, N not a
-   multiple of its tile, k = 1, k = N and k > N (+inf / -1), integer data
+   bitwise; both ADC kernels bitwise in both of `plan`'s forms, either side
+   of its cut, at M = 8, 12, 48 and 64, K = 16, B = N = 1 and codes one byte
+   into their storage, with an empty kernel at each main shape's geometry
+   timed as the design floor; for the L2 top-k kernel, bitwise, odd B, N not
+   a multiple of its tile, k = 1, k = N and k > N (+inf / -1), integer data
    (ties), D = 1 and 960, bf16 inputs and a base of identical rows, each
    call making the launches `plan` counts, then DIN's retrieval shapes
    (B = 1 and 64, N = 1,048,576, D = 18, k = 1024) and the kernel bench's
    (B = 8, N = 100,000, D = 128, k = 100); for flash-decode, within atol
    1e-5 of its plain version, the reference's sweep, G = 1, 4 and 32,
    Dh = 16, 120, 128 and 256, ragged S, cache_len ragged, 1, S, 0 (zeros)
-   and > S (clamped), f32 and bf16 caches, then one decode_32k layer
-   (B = 8, H = Hkv = 16, Dh = 128, S = 32,768, bf16), the kernel bench's
-   shape (B = 4, H = 32, Hkv = 8, S = 8,192) and one long_500k layer
-   (B = 1, S = 524,288); times by CUDA events beside the plain version, a
-   PyTorch yardstick where one exists, and the least time the card could
-   take (`bound_ms`); for flash-decode also the bytes of its bound over
-   its time (GB/s) and their share of the card's 3.35 TB/s;
+   and > S (clamped), f32 and bf16 caches, then one decode_32k layer (B = 8,
+   H = Hkv = 16, Dh = 128, S = 32,768, bf16), the kernel bench's shape
+   (B = 4, H = 32, Hkv = 8, S = 8,192) and one long_500k layer (B = 1,
+   S = 524,288); times by CUDA events beside the plain version, a PyTorch
+   yardstick where one exists, and the least time the card could take
+   (`bound_ms`); for flash-decode also the bytes of its bound over its time
+   (GB/s) and their share of the card's 3.35 TB/s;
 4. query path: `paper_dataset("sift-like")` at `--n` with exact top-100
    ground truth, an exact kNN graph at BAMG's serving width R = 32, PQ
    trained and encoded on the card, and 1,024 queries served in batches of
@@ -583,6 +586,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.l2_topk.ops import plan
     from repro_torch.kernels.pq_adc import (pq_adc, pq_adc_ref,
                                             pq_adc_rowwise, pq_adc_rowwise_ref)
+    from repro_torch.kernels.pq_adc.ops import FORMS as ADC_FORMS
+    from repro_torch.kernels.pq_adc.ops import plan as adc_plan
     from repro_torch.serve import BatchedANNEngine, EngineConfig
 
     dev = torch.device("cuda", 0)
@@ -734,21 +739,41 @@ def main(argv=None) -> int:
     errs = {"pq_adc": 0.0, "pq_adc_rowwise": 0.0, "beam_hops": 0.0,
             "beam_hops_l2": 0.0, "l2_topk": 0.0, "flash_decode": 0.0}
 
-    # ragged cases: odd B, N and R, integer tables, >48 KB tables (M = 64)
-    for b, n, m, k, integer in ((37, 1000, 8, 64, True),
-                                (5, 333, 64, 256, False),
-                                (3, 70000, 16, 256, False)):
-        t = tables_for(b, m, k, integer)
-        c = on_dev(rng.integers(0, k, (n, m)).astype(np.uint8))
-        errs["pq_adc"] = max(errs["pq_adc"], same(
-            f"pq_adc B={b} N={n} M={m}", [pq_adc(t, c)], [pq_adc_ref(t, c)]))
-    for b, r, m, k, integer in ((37, 5, 32, 256, True),
-                                (3, 257, 64, 256, False)):
-        t = tables_for(b, m, k, integer)
-        c = on_dev(rng.integers(0, k, (b, r, m)).astype(np.uint8))
-        errs["pq_adc_rowwise"] = max(errs["pq_adc_rowwise"], same(
-            f"pq_adc_rowwise B={b} R={r} M={m}", [pq_adc_rowwise(t, c)],
-            [pq_adc_rowwise_ref(t, c)]))
+    # ADC, bitwise: odd B, N and R, integer tables, >48 KB tables (M = 64);
+    # both of `plan`'s forms on either side of its cut (B = 3, K = 256:
+    # staged from N = 45,056); M = 8, 12 (rows never 16-byte aligned), 48
+    # and 64; codes one byte into their storage; B = N = 1; K = 16
+    def adc_codes(shape, k, offset):
+        flat = rng.integers(0, k, int(np.prod(shape)) + offset)
+        return on_dev(flat.astype(np.uint8))[offset:].view(shape)
+    adc_forms = {"pq_adc": set(), "pq_adc_rowwise": set()}
+    for name, fn, ref, cases in (
+            ("pq_adc", pq_adc, pq_adc_ref, (
+                (37, 1000, 8, 64, True, 0), (5, 333, 64, 256, False, 0),
+                (3, 70000, 16, 256, False, 0), (3, 45056, 16, 256, True, 0),
+                (3, 44968, 16, 256, True, 0), (9, 500, 12, 256, False, 1),
+                (3, 70000, 12, 256, False, 1), (2, 70000, 64, 256, False, 0),
+                (4, 2000, 48, 256, False, 0), (1, 1, 16, 256, False, 0),
+                (1, 1, 12, 256, False, 1), (64, 256, 16, 16, True, 0),
+                (300, 31, 16, 16, True, 0), (64, 256, 16, 256, False, 1))),
+            ("pq_adc_rowwise", pq_adc_rowwise, pq_adc_rowwise_ref, (
+                (37, 5, 32, 256, True, 0), (3, 257, 64, 256, False, 0),
+                (64, 32, 8, 256, False, 0), (13, 33, 12, 256, True, 1),
+                (1, 1, 16, 256, False, 0), (64, 32, 16, 16, True, 0),
+                (64, 20, 16, 16, True, 0), (2, 70000, 16, 256, False, 0),
+                (64, 32, 16, 256, False, 1)))):
+        for b, n, m, k, integer, offset in cases:
+            t = tables_for(b, m, k, integer)
+            c = adc_codes((n, m) if name == "pq_adc" else (b, n, m), k,
+                          offset)
+            p = adc_plan(b, n, m, k, c.data_ptr())
+            adc_forms[name].add(p.form)
+            errs[name] = max(errs[name], same(
+                f"{name} B={b} N={n} M={m} K={k} offset={offset} {p.form} "
+                f"vec={p.vec}", [fn(t, c)], [ref(t, c)], exact=True))
+    if any(seen != set(ADC_FORMS) for seen in adc_forms.values()):
+        raise AssertionError(f"the ADC checks reached forms {adc_forms}")
+    log("kernel checks pq_adc, pq_adc_rowwise: bitwise in both forms")
     # beam: padded graphs with dead ends, rows without seeds, hop budgets
     # past exhaustion, L not a warp multiple, and the limits L=1024, R=256;
     # then a duplicate-heavy graph (each row holds its ids twice, across
@@ -842,9 +867,14 @@ def main(argv=None) -> int:
     ecodes = codes[cands].contiguous()
     rows = {}
 
+    def adc_floor(p):
+        """An empty kernel at plan p's geometry: the design floor."""
+        return lambda: _build.launch("pq_adc floor", "pq_adc_floor_launch",
+                                     dev, *p.grid, p.threads, p.smem)
+
     out = pq_adc(tables, ecodes)
-    errs["pq_adc"] = max(errs["pq_adc"], same("pq_adc main", [out],
-                                              [pq_adc_ref(tables, ecodes)]))
+    errs["pq_adc"] = max(errs["pq_adc"], same(
+        "pq_adc main", [out], [pq_adc_ref(tables, ecodes)], exact=True))
     w_adc = tables.permute(1, 2, 0).reshape(M * K, B).contiguous()
     i_adc = (ecodes.long() + torch.arange(M, device=dev) * K).contiguous()
     lib_out = F.embedding_bag(i_adc, w_adc, mode="sum").T
@@ -852,27 +882,32 @@ def main(argv=None) -> int:
         f"{float((lib_out - out).abs().max()):.3g}")
     b_bytes = (table_bytes(ecodes[None].expand(B, E, M), K) + ecodes.numel()
                + B * E * 4)
+    p_adc = adc_plan(B, E, M, K, ecodes.data_ptr())
     rows["pq_adc"] = dict(
         kernel=timed(lambda: pq_adc(tables, ecodes)),
         plain=timed(lambda: pq_adc_ref(tables, ecodes)),
         library=timed(lambda: F.embedding_bag(i_adc, w_adc, mode="sum")),
-        bound=bound(b_bytes, B * E * M))
+        bound=bound(b_bytes, B * E * M), plan=p_adc,
+        floor=timed(adc_floor(p_adc)))
 
     nb = torch.randint(0, n_main, (B, R), device=dev, generator=gen)
     cand_codes = codes[nb].contiguous()                      # (B, R, M)
     out = pq_adc_rowwise(tables, cand_codes)
     errs["pq_adc_rowwise"] = max(errs["pq_adc_rowwise"], same(
-        "pq_adc_rowwise main", [out], [pq_adc_rowwise_ref(tables, cand_codes)]))
+        "pq_adc_rowwise main", [out], [pq_adc_rowwise_ref(tables, cand_codes)],
+        exact=True))
     w_row = tables.reshape(B * M * K, 1)
     i_row = (cand_codes.long() + torch.arange(M, device=dev) * K
              + torch.arange(B, device=dev)[:, None, None] * (M * K)
              ).reshape(B * R, M).contiguous()
     b_bytes = table_bytes(cand_codes, K) + cand_codes.numel() + B * R * 4
+    p_row = adc_plan(B, R, M, K, cand_codes.data_ptr())
     rows["pq_adc_rowwise"] = dict(
         kernel=timed(lambda: pq_adc_rowwise(tables, cand_codes)),
         plain=timed(lambda: pq_adc_rowwise_ref(tables, cand_codes)),
         library=timed(lambda: F.embedding_bag(i_row, w_row, mode="sum")),
-        bound=bound(b_bytes, B * R * M))
+        bound=bound(b_bytes, B * R * M), plan=p_row,
+        floor=timed(adc_floor(p_row)))
 
     pool = seeded_pool(tables, codes, cands, NE, L)
     got = beam_hops(adj, *pool, HOPS, tables=tables, codes=codes)
@@ -1134,6 +1169,9 @@ def main(argv=None) -> int:
             f" | library {fmt(row['library'])} | bound "
             f"{row['bound'][0] * 1e3:.3f} us ({row['bound'][1]}) | max|err| "
             f"{errs[name]:.3g} | {card}")
+        if "floor" in row:
+            log(f"  {name}: {row['plan']} | design floor (an empty kernel "
+                f"at that geometry): {fmt(row['floor'])}")
         log(f"  device kernels seen: {row['kernel']['names']}")
     for (b, n, d, k), row in l2_rows.items():
         log(f"kernel l2_topk B={b} N={n} D={d} k={k}: {fmt(row['kernel'])} "
@@ -1448,6 +1486,11 @@ def main(argv=None) -> int:
             "library_call_ms": (None if row["library"] is None
                                 else row["library"]["call"]),
             "timing": timing}
+        if "floor" in row:
+            p = row["plan"]
+            entry["plan"] = dict(form=p.form, grid=list(p.grid),
+                                 threads=p.threads, smem=p.smem, vec=p.vec)
+            entry["floor_ms"] = on_card(row["floor"])
         if name in also:
             entry["also_replaces"] = also[name]
             entry["source_header"] = loop

@@ -36,8 +36,9 @@ BACKENDS = ("auto", "cuda", "ref")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "pq_adc_launch": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
-    "pq_adc_rowwise_launch": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "pq_adc_launch": (_I, [_P] * 3 + [_I] * 9 + [_P]),
+    "pq_adc_rowwise_launch": (_I, [_P] * 3 + [_I] * 9 + [_P]),
+    "pq_adc_floor_launch": (_I, [_I] * 4 + [_P]),
     "beam_hops_adc_launch": (_I, [_P] * 14 + [_I] * 6 + [_P]),
     "beam_hops_adc_smem_bytes": (ctypes.c_size_t, [_I] * 4),
     "beam_hops_l2_launch": (_I, [_P] * 16 + [_I] * 5 + [_P]),

@@ -32,6 +32,7 @@ from repro_torch.models.transformer import (decode_step, init_cache,
                                             init_lm_params, serve_prefill)
 from repro_torch.kernels.pq_adc import (pq_adc, pq_adc_ref, pq_adc_rowwise,
                                         pq_adc_rowwise_ref)
+from repro_torch.kernels.pq_adc.ops import plan as adc_plan
 from repro_torch.configs import din_cfg
 from repro_torch.data.synthetic import din_batch
 from repro_torch.serve import BatchedANNEngine, EngineConfig
@@ -52,25 +53,65 @@ def _tables(b, m, k, integer, dev):
     return torch.as_tensor(t, dtype=torch.float32, device=dev)
 
 
-def _codes(shape, k, dev):
-    return torch.as_tensor(RNG.integers(0, k, shape), dtype=torch.uint8,
-                           device=dev)
+def _codes(shape, k, dev, offset=0):
+    """uint8 codes; offset > 0 starts the tensor that many bytes into its
+    storage (rows no wider load can take)."""
+    flat = RNG.integers(0, k, int(np.prod(shape)) + offset)
+    t = torch.as_tensor(flat, dtype=torch.uint8, device=dev)
+    return t[offset:].view(shape)
 
 
-@pytest.mark.parametrize("b,n,m,k,integer", [
-    (64, 256, 16, 256, False), (37, 1000, 8, 64, True),
-    (5, 333, 64, 256, False), (1, 70000, 16, 256, False)])
-def test_pq_adc_kernel_matches_plain(dev, b, n, m, k, integer):
-    t, c = _tables(b, m, k, integer, dev), _codes((n, m), k, dev)
+# both forms on either side of `plan`'s cut (B = 3, K = 256: a staged
+# block scores n / 88 rows, staged from 512 = 2 * K), M = 8, 12 (never
+# 16-byte rows), 48 and 4 (runtime M), 64 (a 64 KB table), codes one byte
+# into their storage, B = N = 1 and K = 16
+@pytest.mark.parametrize("b,n,m,k,integer,offset,form", [
+    (64, 256, 16, 256, False, 0, "gather"),
+    (37, 1000, 8, 64, True, 0, "staged"),
+    (5, 333, 64, 256, False, 0, "gather"),
+    (1, 70000, 16, 256, False, 0, "gather"),
+    (3, 70000, 16, 256, False, 0, "staged"),
+    (3, 45056, 16, 256, True, 0, "staged"),
+    (3, 44968, 16, 256, True, 0, "gather"),
+    (9, 500, 12, 256, False, 0, "gather"),
+    (3, 70000, 12, 256, False, 0, "staged"),
+    (2, 70000, 64, 256, False, 0, "staged"),
+    (4, 2000, 48, 256, False, 0, "gather"),
+    (9, 1024, 4, 64, False, 0, "staged"),
+    (64, 256, 16, 256, False, 1, "gather"),
+    (3, 70000, 16, 256, False, 1, "staged"),
+    (7, 999, 12, 64, True, 1, "staged"),
+    (1, 1, 16, 256, False, 0, "gather"),
+    (1, 1, 12, 256, False, 1, "gather"),
+    (64, 256, 16, 16, True, 0, "staged"),
+    (3, 3000, 16, 16, False, 0, "staged"),
+    (300, 31, 16, 16, True, 0, "gather"),
+    (64, 100, 4, 64, False, 0, "gather"),
+    (9, 500, 12, 256, True, 1, "gather")])
+def test_pq_adc_kernel_matches_plain(dev, b, n, m, k, integer, offset, form):
+    t, c = _tables(b, m, k, integer, dev), _codes((n, m), k, dev, offset)
+    assert adc_plan(b, n, m, k, c.data_ptr()).form == form
     before = pq_adc.launches
     torch.testing.assert_close(pq_adc(t, c), pq_adc_ref(t, c), rtol=0, atol=0)
     assert pq_adc.launches == before + 1
 
 
-@pytest.mark.parametrize("b,r,m,k,integer", [
-    (64, 32, 16, 256, False), (37, 5, 32, 256, True), (3, 257, 64, 256, False)])
-def test_pq_adc_rowwise_kernel_matches_plain(dev, b, r, m, k, integer):
-    t, c = _tables(b, m, k, integer, dev), _codes((b, r, m), k, dev)
+@pytest.mark.parametrize("b,r,m,k,integer,offset,form", [
+    (64, 32, 16, 256, False, 0, "gather"),
+    (37, 5, 32, 256, True, 0, "gather"),
+    (3, 257, 64, 256, False, 0, "gather"),
+    (64, 32, 8, 256, False, 0, "gather"),
+    (64, 32, 16, 256, False, 1, "gather"),
+    (13, 33, 12, 256, True, 1, "gather"),
+    (1, 1, 16, 256, False, 0, "gather"),
+    (64, 32, 16, 16, True, 0, "staged"),
+    (64, 20, 16, 16, True, 0, "gather"),
+    (2, 70000, 16, 256, False, 0, "staged"),
+    (3, 3000, 16, 16, False, 1, "staged")])
+def test_pq_adc_rowwise_kernel_matches_plain(dev, b, r, m, k, integer, offset,
+                                             form):
+    t, c = _tables(b, m, k, integer, dev), _codes((b, r, m), k, dev, offset)
+    assert adc_plan(b, r, m, k, c.data_ptr()).form == form
     before = pq_adc_rowwise.launches
     torch.testing.assert_close(pq_adc_rowwise(t, c), pq_adc_rowwise_ref(t, c),
                                rtol=0, atol=0)

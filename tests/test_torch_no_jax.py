@@ -1,5 +1,6 @@
-"""The port and `chip_smoke.py` stand alone: neither imports jax nor the
-JAX package `repro`, so they run on a machine that has neither."""
+"""The port, `chip_smoke.py` and the kernel harnesses in `tools/` stand
+alone: none imports jax or the JAX package `repro`, so they run on a
+machine that has neither."""
 import pkgutil
 import re
 import subprocess
@@ -23,7 +24,8 @@ def _modules():
 
 
 def test_sources_import_no_jax_and_no_repro():
-    files = sorted(PKG.rglob("*.py")) + [SMOKE]
+    files = (sorted(PKG.rglob("*.py")) + [SMOKE]
+             + sorted((ROOT / "tools").glob("*.py")))
     assert len(files) > 10
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())

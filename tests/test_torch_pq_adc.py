@@ -23,6 +23,8 @@ from repro_torch.core.pq import PQCodec, adc_tables, train_pq
 from repro_torch.data import synthetic as tsyn
 from repro_torch.kernels.pq_adc import (pq_adc, pq_adc_ref, pq_adc_rowwise,
                                         pq_adc_rowwise_ref)
+from repro_torch.kernels.pq_adc.ops import (LOOKUPS_CUT, THREADS, code_vec,
+                                            plan, staged_plan)
 
 RNG = np.random.default_rng(0)
 T = torch.from_numpy
@@ -97,6 +99,68 @@ def test_kernel_wrappers_dispatch_on_cpu():
     with pytest.raises(ValueError, match="backend"):
         pq_adc(tables, codes, backend="pallas")
     assert (pq_adc.launches, pq_adc_rowwise.launches) == before
+
+
+@pytest.mark.parametrize("b", (1, 3, 64))
+def test_plan_form_either_side_of_the_cut(b):
+    """Staged where a staged block would score LOOKUPS_CUT * K rows or
+    more (each table entry looked up LOOKUPS_CUT times), else gather."""
+    k = 256
+    gy = staged_plan(b, 1 << 30, 16, k, 16).grid[1]   # gy for large N
+    at = gy * LOOKUPS_CUT * k                         # rows a block = cut
+    assert plan(b, at, 16, k, 0).form == "staged"
+    assert plan(b, at - gy, 16, k, 0).form == "gather"
+    assert plan(64, 256, 16, k, 0).form == "gather"   # entry scoring
+    assert plan(64, 32, 16, k, 0).form == "gather"    # hop scoring
+    # a flat index past int32 always stages, whatever the lookups
+    assert plan(1 << 20, 1 << 12, 16, 1 << 20, 0).form == "staged"
+
+
+def _covered(p, b, n):
+    """How often the kernel's index mapping (csrc/pq_adc.cu) reaches each
+    of the B*N estimates under plan p."""
+    gx, gy = p.grid
+    t = np.arange(p.threads)
+    if p.form == "gather":
+        i = (np.arange(gx)[:, None] * p.threads + t).ravel()
+        return np.bincount(i[i < b * n], minlength=b * n)
+    hits = np.zeros(b * n, np.int64)
+    for y in range(gy):
+        rows = np.arange(y * p.threads, n, gy * p.threads)[:, None] + t
+        rows = rows[rows < n]
+        for q in range(gx):
+            np.add.at(hits, q * n + rows, 1)
+    return hits
+
+
+@pytest.mark.parametrize("b,n,m,k", [
+    (64, 256, 16, 256), (64, 32, 16, 256), (3, 70000, 16, 256),
+    (1, 1, 16, 256), (37, 1000, 8, 64), (5, 333, 64, 256), (2, 300000, 16, 16),
+    (64, 700000, 16, 256), (130, 9, 12, 16)])
+def test_plan_grid_covers_every_estimate_once(b, n, m, k):
+    p = plan(b, n, m, k, 0)
+    assert (_covered(p, b, n) == 1).all()
+    assert p.threads <= THREADS and p.threads % 32 == 0
+    assert p.grid[1] <= 65535
+    if p.form == "gather":
+        assert p.smem == 0 and p.grid[1] == 1
+    else:
+        assert p.smem == m * k * 4 and p.grid[0] == b
+    staged = staged_plan(b, n, m, k, p.vec)     # the staged form, forced
+    assert (_covered(staged, b, n) == 1).all() and staged.smem == m * k * 4
+
+
+@pytest.mark.parametrize("m,addr,vec", [
+    (16, 0, 16), (16, 4096, 16), (16, 8, 8), (16, 4, 4), (16, 1, 1),
+    (16, 2, 1), (8, 0, 8), (8, 4, 4), (8, 3, 1), (12, 0, 4), (12, 16, 4),
+    (12, 1, 1), (12, 6, 1), (32, 0, 16), (64, 0, 16), (64, 24, 8),
+    (4, 0, 4), (5, 0, 1), (1, 0, 1)])
+def test_plan_vector_width_follows_m_and_alignment(m, addr, vec):
+    """Row i starts at addr + i * M: the width divides both, so M = 12
+    rows are never 16-byte aligned and an odd address reads bytes."""
+    assert code_vec(m, addr) == vec
+    assert plan(64, 256, m, 256, addr).vec == vec
+    assert plan(3, 1 << 22, m, 256, addr).vec == vec      # staged too
 
 
 def test_adc_tables_and_codec_match_reference():
