@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's batched BAMG query and construction paths,
-DIN serving and OLMo-1B decode serving on one NVIDIA GPU.
+its disk-resident index, DIN serving and OLMo-1B decode serving on one
+NVIDIA GPU.
 
 Run from the root of a checkout, with one card:
 
     python3 chip_smoke.py         # serve at N = 1,000,000, build at 100,000
-    python3 chip_smoke.py --n 100000 --build-n 20000    # a quicker check
+    python3 chip_smoke.py --n 100000 --build-n 20000 --disk-n 5000  # quicker
 
-Phases, in order; any failed check raises and the script exits nonzero:
+Phases, in the order they run (8 runs right after 5, on its BAMG); any
+failed check raises and the script exits nonzero:
 
 1. card: name and power limit (nvidia-smi), TF32 off for matmul and cuDNN;
 2. build: nvcc compiles the kernels in `src/repro_torch/csrc/`;
@@ -54,6 +56,24 @@ Phases, in order; any failed check raises and the script exits nonzero:
    profiled frontier run splits the stage into the kernel's device time,
    other device time and the host; the two backends must agree, and every
    stage's time is logged;
+8. the disk-resident index: phase 5's graph, codec, codes and nav graph
+   wrapped in the port's `BAMGIndex` through its constructor and
+   `_make_decoupled_store` (29 nodes a 4 KB graph block, vectors in their
+   own region), nothing rebuilt; `search_batch` on 1,000 queries with
+   exact top-10 at L = 64 and 128 under the default I/O (LRU, 256 graph
+   and 256 vector blocks cached, qd 1, caches dropped before each query),
+   then at qd = 4 with batched submissions, logging recall@10, mean NIO,
+   graph and vector reads, hops, n_dist, n_pq, the cost model's QPS and
+   pipelined QPS and host ms a query.  NIO must equal graph + vector reads
+   on every query, qd = 4 must keep every query's ids, NIO and cache hits,
+   a zero-rate fault plan must be bit-identical to the clean disk, and a
+   1% transient-error plan must return the clean ids on >= 95% of the
+   queries.  `save` then `load` on the card must keep ids and NIO on 64
+   queries, and `BatchedANNEngine.from_index` must return phase 5's ids
+   under "auto" (the pq_adc and beam-hop kernels) and "ref"'s under
+   "cuda" (pq_adc_rowwise).  Then BAMG, DiskANN and Starling are built on
+   the card at `--disk-n` (each build must launch the exact-L2 hop
+   kernel) and searched at L = 64: build time, NIO and recall@10 each;
 6. DIN serving at `din_cfg.model_config()` (embed 18, history 100,
    attention MLP 80-40, MLP 200-80, 1,048,576 items, rerank_k 1,024),
    parameters from the port's `init_params` with a seeded generator on the
@@ -542,6 +562,209 @@ def lm_serving(dev, card, reset_counts, read_counts) -> int:
     return req_launches + launches["auto"]["flash_decode"]
 
 
+def disk_index(dev, card, built, served, cfg, batch, disk_n,
+               reset_counts, read_counts) -> dict:
+    """Phase 8: the paper's disk-resident index on the card.  `built` is
+    phase 5's BAMG (dataset, graph, codec, codes, nav); `served` its ids
+    under phase 5's engine (`cfg`, batches of `batch`).  Returns the
+    launches of the kernels this phase ran, by kernel."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import engine
+    from repro_torch.core.engine import (BAMGIndex, BAMGParams, DiskANNIndex,
+                                         DiskANNParams, StarlingIndex,
+                                         StarlingParams,
+                                         _make_decoupled_store)
+    from repro_torch.data.synthetic import paper_dataset
+    from repro_torch.serve import BatchedANNEngine
+    from repro_torch.utils.faults import FaultSpec, RetryPolicy
+
+    t_phase = time.perf_counter()
+    ds, graph, codec, codes, nav = built
+    nq = 1000
+    queries, gt = ds.queries[:nq], ds.gt[:nq, :10]
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # 1. phase 5's graph, codec, codes and nav graph in the port's index,
+    # through its constructor and `_make_decoupled_store`, as `load` does
+    t0 = time.perf_counter()
+    p = BAMGParams()
+    if (graph.capacity, graph.alpha, graph.beta) != (29, p.alpha, p.beta):
+        raise AssertionError(f"phase 5's BAMG is not BAMGParams' defaults: "
+                             f"{graph.capacity}, {graph.alpha}, {graph.beta}")
+    idx = BAMGIndex(ds.base, graph, codec, codes.cpu().numpy(),
+                    _make_decoupled_store(ds.base, graph, nav, p), nav, p)
+    st = idx.store
+    log(f"disk index: N={len(ds.base)} d={ds.base.shape[1]} | "
+        f"{st.m} graph blocks of {st.capacity} nodes ({st.record_bytes} B "
+        f"records), {len(st.vector_dev)} vector blocks "
+        f"({st.vecs_per_vblock} vectors a block) | index "
+        f"{idx.index_bytes() / 2 ** 20:.1f} MiB on the simulated disk, "
+        f"{idx.memory_bytes() / 2 ** 20:.2f} MiB in memory | layout "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    def show(name, s, wall_ms):
+        log(f"disk {name}: recall@10 {s.recall:.4f} | mean NIO "
+            f"{s.mean_nio:.3f} (graph {s.mean_graph_reads:.3f}, vector "
+            f"{s.mean_vector_reads:.3f}) | hops {s.mean_hops:.2f} | n_dist "
+            f"{s.mean_n_dist:.2f} | n_pq {s.mean_n_pq:.1f} | cache hit rate "
+            f"{s.cache_hit_rate:.4f} | cost model qps {s.qps:.1f}, "
+            f"qps_pipelined {s.qps_pipelined:.1f} (service "
+            f"{s.mean_service_us:.1f} us, serial {s.mean_serial_us:.1f} us "
+            f"a query) | host {wall_ms:.3f} ms a query | {card}")
+
+    def per_query(index, l, tables):
+        return [index.search(q, 10, l, table=t)
+                for q, t in zip(queries, tables)]
+
+    # 2. the disk search, default I/O: LRU, 256 + 256 blocks cached, qd 1,
+    # caches dropped before each query
+    reset_counts()
+    t0 = time.perf_counter()
+    tables = engine._tables(idx.codec, queries)
+    t_tables = time.perf_counter() - t0
+    stats = {}
+    for l in (64, 128):
+        t0 = time.perf_counter()
+        stats[l] = idx.search_batch(queries, 10, l, gt=gt)
+        show(f"BAMG L={l}", stats[l],
+             (time.perf_counter() - t0) * 1e3 / nq)
+    log(f"  ADC tables of {nq} queries: one adc_tables call on "
+        f"{idx.device}, {tables.nbytes / 2 ** 20:.2f} MiB to the host, "
+        f"{t_tables * 1e3:.2f} ms")
+    clean = per_query(idx, 64, tables)
+    again = engine._aggregate(clean, gt, 10, idx.cost)
+    if dataclasses.asdict(again) != dataclasses.asdict(stats[64]):
+        raise AssertionError("search_batch differs from its queries' "
+                             "search results")
+    bad = [i for i, r in enumerate(clean)
+           if r.nio != r.graph_reads + r.vector_reads]
+    if bad:
+        raise AssertionError(f"NIO != graph + vector reads on {len(bad)} "
+                             f"queries")
+    idx.configure_io(qd=4, batch_io=True)
+    t0 = time.perf_counter()
+    piped = per_query(idx, 64, tables)
+    wall = (time.perf_counter() - t0) * 1e3 / nq
+    show("BAMG L=64 qd=4 batch_io", engine._aggregate(piped, gt, 10,
+                                                      idx.cost), wall)
+    for i, (a, b) in enumerate(zip(piped, clean)):
+        if (not np.array_equal(a.ids, b.ids) or a.nio != b.nio
+                or a.cache_hits != b.cache_hits):
+            raise AssertionError(f"qd=4 batch_io changed query {i}: ids, "
+                                 f"NIO or cache hits")
+        if a.service_us > a.serial_us + 1e-6:
+            raise AssertionError(f"query {i}: pipelined service exceeds "
+                                 f"the serial time")
+    idx.configure_io(qd=1, batch_io=False)
+    idx.configure_io(faults=FaultSpec(), retry=RetryPolicy(budget=4),
+                     timeout_us=10_000.0, hedge_us=200.0)
+    zero = per_query(idx, 64, tables)
+    for i, (a, b) in enumerate(zip(zero, clean)):
+        if not all(np.array_equal(u, v) for u, v in zip(
+                dataclasses.astuple(a), dataclasses.astuple(b))):
+            raise AssertionError(f"a zero-rate fault plan changed query {i}")
+    idx.configure_io(faults=FaultSpec(read_error_rate=0.01), fault_seed=5,
+                     retry=None, timeout_us=None, hedge_us=None)
+    t0 = time.perf_counter()
+    hurt = per_query(idx, 64, tables)
+    wall = (time.perf_counter() - t0) * 1e3 / nq
+    same = np.mean([np.array_equal(a.ids, b.ids)
+                    for a, b in zip(hurt, clean)])
+    hs = engine._aggregate(hurt, gt, 10, idx.cost)
+    show("BAMG L=64 1% transient read errors", hs, wall)
+    log(f"  faults: a zero-rate plan (retry, timeout and hedge armed) is "
+        f"bit-identical to the clean disk on all {nq} queries | 1% read "
+        f"errors (seed 5, default retry): {same:.2%} of queries return the "
+        f"clean ids, degraded {hs.degraded_fraction:.4f}, retries "
+        f"{hs.mean_retries:.3f} a query")
+    if same < 0.95:
+        raise AssertionError(f"1% read errors: only {same:.2%} of queries "
+                             f"kept the clean ids")
+    idx.configure_io(faults=None)
+    add(read_counts())
+
+    # 3. save, load on the card, serve the same index
+    out = ROOT / "build" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    idx.save(str(out / "bamg.npz"))
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = BAMGIndex.load(str(out / "bamg.npz"))
+    t_load = time.perf_counter() - t0
+    if back.device != dev:
+        raise AssertionError(f"load put the codebooks on {back.device}")
+    for i, q in enumerate(queries[:64]):
+        r = back.search(q, 10, 64, table=tables[i])
+        if not np.array_equal(r.ids, clean[i].ids) or r.nio != clean[i].nio:
+            raise AssertionError(f"the loaded index differs on query {i}")
+    log(f"  save {t_save:.2f} s ({(out / 'bamg.npz').stat().st_size / 2 ** 20:.1f}"
+        f" MiB npz), load on {back.device} {t_load:.2f} s: 64 queries give "
+        f"the same ids and NIO")
+    reset_counts()
+    eng = BatchedANNEngine.from_index(back, cfg)
+    ids = np.concatenate([eng.search_batch(ds.queries[s:s + batch], 10)[0]
+                          for s in range(0, len(ds.queries), batch)])
+    n_auto = read_counts()
+    add(n_auto)
+    np.testing.assert_array_equal(ids, served["bamg", "auto"][0])
+    if n_auto["beam_hops"] < 1 or n_auto["pq_adc"] < 1:
+        raise AssertionError(f"from_index under auto: launches {n_auto}")
+    reset_counts()
+    eng = BatchedANNEngine.from_index(
+        back, dataclasses.replace(cfg, backend="cuda"))
+    ids_cuda = np.concatenate([eng.search_batch(ds.queries[s:s + batch],
+                                                10)[0]
+                               for s in range(0, 4 * batch, batch)])
+    n_cuda = read_counts()
+    add(n_cuda)
+    np.testing.assert_array_equal(ids_cuda, served["bamg", "ref"][0][:4 * batch])
+    if n_cuda["pq_adc_rowwise"] < 1:
+        raise AssertionError(f"from_index under cuda: launches {n_cuda}")
+    log(f"  from_index: auto gives phase 5's ids on all {len(ids)} queries "
+        f"(launches {n_auto}); cuda gives ref's on {4 * batch} (launches "
+        f"{n_cuda})")
+    del eng, back
+
+    # 4. the paper's comparison at equal settings: BAMG, DiskANN and
+    # Starling built on the card from one corpus, searched at L = 64
+    t0 = time.perf_counter()
+    dd = paper_dataset("sift-like", n=disk_n, nq=nq, seed=SEED, device=dev)
+    log(f"comparison corpus: sift-like N={disk_n} d={dd.base.shape[1]}, "
+        f"{nq} queries, exact top-10, {time.perf_counter() - t0:.2f} s")
+    for name, cls, params in (("BAMG", BAMGIndex, BAMGParams()),
+                              ("DiskANN", DiskANNIndex, DiskANNParams()),
+                              ("Starling", StarlingIndex, StarlingParams())):
+        reset_counts()
+        t0 = time.perf_counter()
+        built_idx = cls.build(dd.base, params)
+        t_build = time.perf_counter() - t0
+        n_build = read_counts()
+        add(n_build)
+        if n_build["beam_hops_l2"] < 1:
+            raise AssertionError(f"{name}'s build did not run beam_hops_l2: "
+                                 f"{n_build}")
+        t0 = time.perf_counter()
+        s = built_idx.search_batch(dd.queries, 10, 64, gt=dd.gt[:, :10])
+        show(f"{name} N={disk_n} L=64", s,
+             (time.perf_counter() - t0) * 1e3 / nq)
+        log(f"  {name} build: {t_build:.2f} s on {built_idx.device} "
+            f"(build_backend {params.build_backend}), beam_hops_l2 launches "
+            f"{n_build['beam_hops_l2']}, mean degree "
+            f"{built_idx.degree_stats()['total']:.3f}, index "
+            f"{built_idx.index_bytes() / 2 ** 20:.1f} MiB")
+    log(f"phase 8 took {time.perf_counter() - t_phase:.1f} s | {card}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -550,6 +773,9 @@ def main(argv=None) -> int:
                     help="corpus size of the construction path (default: "
                          "a tenth of SIFT1M; the host-Python refine and nav "
                          "graph grow faster than N)")
+    ap.add_argument("--disk-n", type=int, default=20_000,
+                    help="corpus size of phase 8's comparison of BAMG, "
+                         "DiskANN and Starling built on the card")
     args = ap.parse_args(argv)
 
     import torch
@@ -1428,6 +1654,14 @@ def main(argv=None) -> int:
     log("construction path: auto == ref on the built BAMG (ids equal, dists "
         f"within 1e-5, exact to 1e-4 relative); {len(dead)} tombstoned ids "
         "never returned")
+    del eng
+    torch.cuda.empty_cache()
+
+    # ---- 8. the disk-resident index on phase 5's BAMG ---------------------
+    disk_launches = disk_index(
+        dev, card, (ds, graph, codec, codes, nav), served,
+        EngineConfig(l=L, max_hops=HOPS, n_entry=NE), B, args.disk_n,
+        reset_counts, read_counts)
     torch.cuda.empty_cache()
 
     # ---- 6. DIN serving -------------------------------------------------------
@@ -1455,13 +1689,19 @@ def main(argv=None) -> int:
             "beam_hops_l2": "src/repro/kernels/beam_fused/kernel.py:546"}
     # the hop loop both beam-hop kernels run
     loop = "src/repro_torch/csrc/beam_loop.cuh"
-    # launches on the main paths: the query path's auto and cuda runs, and
-    # the construction path's build for the exact-L2 kernel
+    # launches on the main paths: the query path's auto and cuda runs, the
+    # construction path's build for the exact-L2 kernel, DIN's retrieval,
+    # LM decode
     path_launches = {k: launches["auto"][k] + launches["cuda"][k]
                      for k in counters}
     path_launches["beam_hops_l2"] = build_launches["beam_hops_l2"]
     path_launches["l2_topk"] = din_launches
     path_launches["flash_decode"] = lm_launches
+    # phase 8's launches (the three index builds, `from_index` under auto
+    # and cuda) go on a line of their own: the kernels line keeps the
+    # counts of the paths it has always counted
+    log("phase 8 launches (not in the kernels line's launches): "
+        + json.dumps(disk_launches))
     def on_card(t):
         if t is None:
             return None

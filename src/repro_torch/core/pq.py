@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .._device import resolve_device, to_device
 from .distances import f32_matmul
 
 
@@ -46,6 +47,13 @@ class PQCodec:
                for s in range(0, len(x), chunk)]
         return torch.cat(out, 0)
 
+    def decode(self, codes) -> torch.Tensor:
+        """Reconstruct vectors from (n, M) codes (array or tensor): (n, d)
+        f32 on the codebooks' device (for error analysis)."""
+        cb = self.codebooks
+        c = to_device(codes, cb.device, torch.int64)
+        return torch.cat([cb[j][c[:, j]] for j in range(self.m)], 1)
+
     def adc_table(self, q: torch.Tensor) -> torch.Tensor:
         """Query (d,) -> (M, K) table of squared L2 distances per subspace."""
         return adc_tables(q[None], self.codebooks)[0]
@@ -63,6 +71,20 @@ class PQCodec:
         for j in range(table.shape[0]):
             acc = acc + table[j, c[:, j]]
         return acc
+
+    def save(self, path: str) -> None:
+        """An npz with the reference's one key, `codebooks` (M, K, dsub)
+        f32, so either package's `PQCodec.load` reads it."""
+        np.savez(path, codebooks=self.codebooks.detach().cpu().numpy())
+
+    @staticmethod
+    def load(path: str, device=None) -> "PQCodec":
+        """Codebooks of a `save` npz (either package's) on `device` (None:
+        the CUDA device)."""
+        with np.load(path) as z:
+            return PQCodec(codebooks=to_device(z["codebooks"],
+                                               resolve_device(device),
+                                               torch.float32))
 
 
 def _encode(x: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:

@@ -60,6 +60,7 @@ class EngineConfig:
     max_hops: int = 32        # fixed beam-expansion iterations
     n_entry: int = 4          # entry seeds per query
     rerank: Optional[int] = None   # pool prefix reranked exactly (None = l)
+    n_entry_cands: int = 256  # entry candidate pool scored by pq_adc
     # kernel backend, reaching entry scoring AND the hop loop:
     #   "auto"       "fused" on a CUDA device, "ref" on the CPU
     #   "fused"      the fused hop-loop kernel; the pq_adc kernel for entries
@@ -134,10 +135,11 @@ def batched_search(x, adj, codes, codebooks, entry_cands, entry_codes,
 class BatchedANNEngine:
     """Batched fixed-shape searcher over one BAMG sub-index.
 
-    Constructed from the array dict of `BAMGIndex.batch_arrays()` (or
-    `core.engine.load_batch_arrays`), numpy arrays or tensors.  The arrays
-    live on `device` (None means the CUDA device): PQ codes stay uint8,
-    adjacency int32 with -1 pads, vectors and codebooks float32.
+    Constructed from an index (`from_index`) or from the array dict of
+    `BAMGIndex.batch_arrays()` (or `core.engine.load_batch_arrays`), numpy
+    arrays or tensors.  The arrays live on `device` (None means the CUDA
+    device): PQ codes stay uint8, adjacency int32 with -1 pads, vectors
+    and codebooks float32.
     `search_batch` accepts numpy or tensors and returns numpy.
     """
 
@@ -163,6 +165,16 @@ class BatchedANNEngine:
         self._rerank = min(config.rerank if config.rerank is not None else l, l)
         self._n_entry = min(config.n_entry, len(self.entry_cands))
         self._fault: Optional[Exception] = None
+
+    @classmethod
+    def from_index(cls, idx, config: Optional[EngineConfig] = None
+                   ) -> "BatchedANNEngine":
+        """Serve a `core.engine.BAMGIndex` as it stands: its
+        `batch_arrays(config.n_entry_cands)` on the index's own device,
+        where its codebooks live."""
+        config = config if config is not None else EngineConfig()
+        return cls(idx.batch_arrays(n_entry_cands=config.n_entry_cands),
+                   config, device=idx.device)
 
     @property
     def rerank_capacity(self) -> int:

@@ -42,7 +42,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.build.chunking", "repro_torch.core.graph_build",
             "repro_torch.core.block_assign", "repro_torch.core.bamg",
             "repro_torch.core.navgraph", "repro_torch.core.storage",
-            "repro_torch.core.engine", "repro_torch.kernels.l2_topk.ops",
+            "repro_torch.core.engine", "repro_torch.core.io_sim",
+            "repro_torch.core.search", "repro_torch.utils.faults",
+            "repro_torch.kernels.l2_topk.ops",
             "repro_torch.kernels.l2_topk.ref", "repro_torch.configs.base",
             "repro_torch.configs.din_cfg", "repro_torch.models.layers",
             "repro_torch.models.recsys.embedding",
