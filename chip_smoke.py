@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's batched BAMG query and construction paths,
-its disk-resident index, DIN serving and OLMo-1B decode serving on one
-NVIDIA GPU.
+its disk-resident index, its serving fleet, deployment and freshness, DIN
+serving and OLMo-1B decode serving on one NVIDIA GPU.
 
 Run from the root of a checkout, with one card:
 
     python3 chip_smoke.py         # serve at N = 1,000,000, build at 100,000
     python3 chip_smoke.py --n 100000 --build-n 20000 --disk-n 5000  # quicker
 
-Phases, in the order they run (8 runs right after 5, on its BAMG); any
-failed check raises and the script exits nonzero:
+Phases, in the order they run (9 runs right after 4, on its corpus; 8
+right after 5, on its BAMG; 10 right after 8, on its index); any failed
+check raises and the script exits nonzero:
 
 1. card: name and power limit (nvidia-smi), TF32 off for matmul and cuDNN;
 2. build: nvcc compiles the kernels in `src/repro_torch/csrc/`;
@@ -45,6 +46,25 @@ failed check raises and the script exits nonzero:
    the launch counters must show the kernels ran, every returned distance
    must be the exact one of its id, and tombstoned ids must never come
    back;
+9. the serving fleet: phase 4's corpus in 4 round-robin shards of
+   250,000, each with its own exact kNN graph at R = 32 and phase 4's
+   codec and codes, assembled by `ServeRuntime(shard_vids, engines,
+   n_replicas=2)` -- 4 shards x 2 replicas on the one card -- and served
+   in batches of 64 under "auto" and "ref": the two must agree, "auto"
+   must equal the legacy per-shard scatter-gather bitwise, every distance
+   must be exact, the clean run must leave every shard and replica up
+   with no error and launch `pq_adc` and `beam_hops` once per shard and
+   batch; with shard 1 marked down the answers must equal the oracle
+   without it, every row degraded; a fault on shard 2's replica 0 must
+   change no answer and mark that replica down; excluded ids must never
+   come back.  A `Scheduler` load sweep (2,048 Poisson requests at 0.5x,
+   1x and 1.5x the fleet's micro-batch throughput of B = 32, SLO 10x the
+   micro-batch median, a shrunk tier of l = 16, 8 hops) logs p50, p99,
+   achieved QPS, deadline hit, degraded and shrunk fractions; at 0.5x
+   every full-beam completion must equal an unscheduled batch.  Then
+   `ServeRuntime.build` builds a BAMG fleet at `--disk-n` (4 shards;
+   reduced, a BAMG per 250,000-point shard does not fit the call) and
+   serves it under "auto" and "ref";
 5. construction path: a BAMG built on the card at `--build-n` from
    `paper_dataset("sift-like")` with `BAMGParams`' defaults -- NSG through
    `GraphBuilder()`'s defaults, `BuildConfig(backend="batched",
@@ -74,6 +94,23 @@ failed check raises and the script exits nonzero:
    "cuda" (pq_adc_rowwise).  Then BAMG, DiskANN and Starling are built on
    the card at `--disk-n` (each build must launch the exact-L2 hop
    kernel) and searched at L = 64: build time, NIO and recall@10 each;
+10. deployment, freshness and BMRNG: `DeploymentManager.deploy` at
+   `--disk-n` (min_recall 0.2), a failing deploy (min_recall 1.01) that
+   must leave ACTIVE, a tampered artifact that must raise
+   `IntegrityError`, a second deploy that `BlueGreenEngine.refresh`
+   must swap in and `rollback` must undo; a `FreshService` bootstrapped
+   from phase 8's `--disk-n` BAMG takes `--inserts` (1,000, 5%) vectors
+   of another seed and 1% deletes of the queries' true top-10, serves
+   1,000 queries batched under "auto" and 100 on the host path,
+   consolidates (validated, published, promoted, swapped) and serves
+   again: no deleted id may come back, before consolidation every insert
+   must come back first at distance 0 for its own vector on the batched
+   path; after it the kernels must miss exactly the plain version's
+   inserts, at the served budget and at l = 512, 1,024 hops; external
+   ids must stay stable and the lineage must reach HISTORY and the
+   manifest.  Last, the exact BMRNG on
+   400 points in BNF blocks of 29, distances on the card, with Theorem
+   1's monotonic I/O path on 200 sampled pairs;
 6. DIN serving at `din_cfg.model_config()` (embed 18, history 100,
    attention MLP 80-40, MLP 200-80, 1,048,576 items, rerank_k 1,024),
    parameters from the port's `init_params` with a seeded generator on the
@@ -101,8 +138,9 @@ failed check raises and the script exits nonzero:
    cast up, the plain version, the same cache, the kernel run's tokens),
    with max and mean |auto - oracle| and |ref - oracle|.
 
-The last lines are the card's nvidia-smi line, one JSON object with every
-kernel's numbers, and `{"ok": true, "device": {...}}`.  The script exits
+The last lines are the script's time, the card's nvidia-smi line, one JSON
+object with every kernel's numbers, and `{"ok": true, "device": {...}}`.
+The script exits
 nonzero, printing no result, where no CUDA device is present or where it
 stands outside a checkout of the repository.
 """
@@ -567,7 +605,8 @@ def disk_index(dev, card, built, served, cfg, batch, disk_n,
     """Phase 8: the paper's disk-resident index on the card.  `built` is
     phase 5's BAMG (dataset, graph, codec, codes, nav); `served` its ids
     under phase 5's engine (`cfg`, batches of `batch`).  Returns the
-    launches of the kernels this phase ran, by kernel."""
+    launches of the kernels this phase ran, by kernel, and the `disk_n`
+    corpus with the BAMG built on it."""
     import dataclasses
 
     import numpy as np
@@ -756,12 +795,585 @@ def disk_index(dev, card, built, served, cfg, batch, disk_n,
         s = built_idx.search_batch(dd.queries, 10, 64, gt=dd.gt[:, :10])
         show(f"{name} N={disk_n} L=64", s,
              (time.perf_counter() - t0) * 1e3 / nq)
+        if cls is BAMGIndex:
+            small = (dd, built_idx)
         log(f"  {name} build: {t_build:.2f} s on {built_idx.device} "
             f"(build_backend {params.build_backend}), beam_hops_l2 launches "
             f"{n_build['beam_hops_l2']}, mean degree "
             f"{built_idx.degree_stats()['total']:.3f}, index "
             f"{built_idx.index_bytes() / 2 ** 20:.1f} MiB")
     log(f"phase 8 took {time.perf_counter() - t_phase:.1f} s | {card}")
+    return launches, small
+
+
+def fleet_serving(dev, card, main, cfg, batch, r, n_cands, disk_n,
+                  reset_counts, read_counts) -> dict:
+    """Phase 9: the serving fleet at SIFT1M scale.  `main` is phase 4's
+    (dataset, vectors on the card, codec, codes); `cfg` and `batch` its
+    engine and batch, `r` and `n_cands` its graph width and entry
+    candidates.  Returns the launches of the kernels this phase ran, by
+    kernel."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.distances import knn_graph, recall_at_k
+    from repro_torch.core.engine import BAMGParams
+    from repro_torch.data.synthetic import paper_dataset
+    from repro_torch.serve import (BatchedANNEngine, BeamTier, Scheduler,
+                                   SchedulerConfig, ServeRuntime,
+                                   make_requests, summarize)
+    from repro_torch.serve.runtime import merge_topk, pad_cols
+
+    t_phase = time.perf_counter()
+    ds, x, codec, codes = main
+    n, k, n_shards, n_rep = len(ds.base), 10, 4, 2
+    queries = ds.queries
+    n_batches = -(-len(queries) // batch)
+    launches = {}
+
+    def add(counts):
+        for name, v in counts.items():
+            launches[name] = launches.get(name, 0) + v
+
+    # 1. round-robin shards, each with its own exact kNN graph at phase
+    # 4's width and phase 4's codec and codes sliced to the shard
+    t0 = time.perf_counter()
+    vids = [np.arange(s, n, n_shards) for s in range(n_shards)]
+    shard_arrays = []
+    for v in vids:
+        rows = torch.as_tensor(v, device=dev)
+        xs = x[rows].contiguous()
+        shard_arrays.append(dict(
+            x=xs, adj=knn_graph(xs, r), codes=codes[rows].contiguous(),
+            codebooks=codec.codebooks,
+            entry_cands=np.linspace(0, len(v) - 1, n_cands, dtype=np.int64)))
+    torch.cuda.synchronize()
+    log(f"fleet: N={n} in {n_shards} round-robin shards of "
+        f"{[len(v) for v in vids]} x {n_rep} replicas on one card | exact "
+        f"kNN graph R={r} per shard, phase 4's codec and codes sliced | "
+        f"set-up {time.perf_counter() - t0:.2f} s | {card}")
+
+    def runtime(backend):
+        engines = [BatchedANNEngine(a, dataclasses.replace(cfg,
+                                                           backend=backend),
+                                    device=dev) for a in shard_arrays]
+        return ServeRuntime(vids, engines, n_replicas=n_rep)
+
+    def serve(rt, qs, b=batch, **kw):
+        """Serve `qs` in batches of `b`: ids, dists, statuses, ms a batch."""
+        ids, dists, stats, times = [], [], [], []
+        for s in range(0, len(qs), b):
+            t0 = time.perf_counter()
+            i, d, st = rt.serve_batch(qs[s:s + b], k, with_status=True, **kw)
+            times.append((time.perf_counter() - t0) * 1e3)
+            ids.append(i)
+            dists.append(d)
+            stats.append(st)
+        return np.concatenate(ids), np.concatenate(dists), stats, times
+
+    def oracle(rt, skip=()):
+        """tests/test_runtime.py's legacy scatter-gather loop over the
+        replica-0 engines, batch by batch."""
+        out_i, out_d = [], []
+        for s in range(0, len(queries), batch):
+            q = queries[s:s + batch]
+            all_i, all_d = [], []
+            for sh, eng in enumerate(rt.engines):
+                if sh in skip:
+                    continue
+                i, d = eng.search_batch(q, k)
+                all_i.append(rt._lut[sh][i])
+                all_d.append(d)
+            gd, gi = merge_topk(np.concatenate(all_d, 1), k)
+            gids = np.take_along_axis(pad_cols(np.concatenate(all_i, 1), k,
+                                               -1), gi, axis=1)
+            out_i.append(np.where(np.isfinite(gd), gids, -1))
+            out_d.append(gd)
+        return np.concatenate(out_i), np.concatenate(out_d)
+
+    def healthy(rt, what, errors=0):
+        """Every shard and replica up, and no more shard errors in all
+        than the `errors` a deliberate fault left (on a clean run none,
+        and no error message anywhere)."""
+        h = rt.health()
+        n_err = sum(p["errors"] for p in h["per_shard"])
+        down = [(s, i) for s, g in enumerate(h["replicas"])
+                for i, up in enumerate(g) if not up]
+        msgs = ([p["last_error"] for p in h["per_shard"] if p["last_error"]]
+                + [rep.last_error for g in rt.placement.shard_replicas
+                   for rep in g if rep.last_error])
+        if (h["shards_down"] or down or n_err > errors
+                or (msgs and not errors)):
+            raise AssertionError(f"{what}: shards down {h['shards_down']}, "
+                                 f"replicas down {down}, errors {n_err}, "
+                                 f"{msgs}")
+
+    # 2. the clean run under auto, then ref
+    rts = {b: runtime(b) for b in ("auto", "ref")}
+    rt = rts["auto"]
+    res, cnt = {}, {}
+    for backend, r_ in rts.items():
+        reset_counts()
+        res[backend] = serve(r_, queries)
+        cnt[backend] = read_counts()
+        healthy(r_, f"clean fleet under {backend}")
+        if any(st.degraded.any() for st in res[backend][2]):
+            raise AssertionError(f"{backend}: a clean batch was degraded")
+    add(cnt["auto"])
+    want = n_shards * n_batches
+    if (cnt["auto"]["beam_hops"] != want or cnt["auto"]["pq_adc"] != want
+            or cnt["auto"]["pq_adc_rowwise"] or cnt["auto"]["beam_hops_l2"]):
+        raise AssertionError(f"clean fleet under auto: launches "
+                             f"{cnt['auto']}, expected beam_hops = pq_adc "
+                             f"= {n_shards} shards x {n_batches} batches")
+    if any(cnt["ref"].values()):
+        raise AssertionError(f"ref launched kernels: {cnt['ref']}")
+    ids, dists = res["auto"][:2]
+    np.testing.assert_array_equal(ids, res["ref"][0])
+    np.testing.assert_allclose(dists, res["ref"][1], rtol=1e-5, atol=1e-5)
+    oi, od = oracle(rt)
+    np.testing.assert_array_equal(ids, oi)
+    np.testing.assert_array_equal(dists, od)
+    if (ids < 0).any():
+        raise AssertionError("a query returned fewer than 10 ids")
+    exact = ((x[torch.as_tensor(ids, device=dev)]
+              - torch.as_tensor(queries, device=dev)[:, None, :]) ** 2).sum(-1)
+    torch.testing.assert_close(torch.as_tensor(dists, device=dev), exact,
+                               rtol=1e-4, atol=0.0)
+    times = res["auto"][3]
+    med = statistics.median(times)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve(rt, queries)
+        wall = time.perf_counter() - t0
+    avgs = prof.key_averages()
+    busy = sum(a.self_device_time_total for a in avgs) / 1e3 / n_batches
+    mem = sum(e.memory_bytes() for e in rt.engines)
+    log(f"fleet auto: recall@10 {recall_at_k(ids, ds.gt, 10):.4f} (global "
+        f"truth) | per-batch median {med:.3f} ms (B={batch}, {n_shards} "
+        f"shard calls) | QPS {batch / med * 1e3:.1f} (median), "
+        f"{len(queries) / (sum(times) / 1e3):.1f} (all {n_batches} batches) "
+        f"| card busy {busy:.4f} ms per batch = {busy / med:.2%} of the "
+        f"median ({sum(a.count for a in avgs) / n_batches:.1f} kernel runs "
+        f"a batch; profiled wall {wall * 1e3 / n_batches:.3f} ms a batch) | "
+        f"launches {cnt['auto']} | resident {mem / 2 ** 30:.3f} GiB for "
+        f"{n_shards * n_rep} replicas | {card}")
+    log(f"fleet ref: per-batch median {statistics.median(res['ref'][3]):.3f}"
+        f" ms | auto == ref (ids equal, dists within 1e-5) == the legacy "
+        f"scatter-gather (bitwise); dists exact to 1e-4 relative")
+
+    # 3. shard 1 down, a failing replica, tombstones
+    rt.mark_down(1)
+    i1, d1, st1, _ = serve(rt, queries)
+    oi, od = oracle(rt, skip={1})
+    np.testing.assert_array_equal(i1, oi)
+    np.testing.assert_array_equal(d1, od)
+    if not all(st.degraded.all() and st.shards_down == (1,) for st in st1):
+        raise AssertionError("shard 1 down: a batch was not flagged degraded")
+    rt.mark_up(1)
+    rt.engines[2].inject_fault()           # replica 0 of shard 2
+    i2, d2, st2, _ = serve(rt, queries)
+    np.testing.assert_array_equal(i2, ids)
+    np.testing.assert_array_equal(d2, dists)
+    h = rt.health()
+    if h["replicas"][2] != [False, True] or h["shards_up"] != n_shards:
+        raise AssertionError(f"failover: replicas {h['replicas']}, "
+                             f"shards up {h['shards_up']}")
+    errors = h["per_shard"][2]["errors"]
+    rt.engines[2].heal()
+    rt.mark_up(2)
+    h = rt.health()
+    if h["shards_up"] != n_shards or not all(all(g) for g in h["replicas"]):
+        raise AssertionError(f"after mark_up: {h}")
+    dead = set(ids[:batch, :3].ravel().tolist())
+    i3, _, _, _ = serve(rt, queries, exclude=dead)
+    if set(i3.ravel().tolist()) & dead:
+        raise AssertionError("an excluded id came back")
+    healthy(rt, "after the fault checks", errors)
+    log(f"fleet faults: shard 1 down == the oracle without it (bitwise), "
+        f"every row degraded | shard 2 replica 0 faulted: answers "
+        f"unchanged, replica marked down ({errors} error(s)), all up after "
+        f"mark_up | {len(dead)} excluded ids never returned")
+
+    # 4. the scheduler: a load sweep at 0.5x, 1x and 1.5x the fleet's
+    # micro-batch throughput
+    mb = 32
+    mb_i, mb_d, _, mb_t = serve(rt, queries, b=mb)
+    med_mb = statistics.median(mb_t) / 1e3
+    rate = mb / med_mb
+    scfg = SchedulerConfig(k=k, max_batch=mb, slo=10 * med_mb,
+                           tiers=(BeamTier(), BeamTier(l=16, max_hops=8)))
+    log(f"scheduler: micro-batch B={mb} median {med_mb * 1e3:.3f} ms = "
+        f"{rate:.1f} QPS | slo {scfg.slo * 1e3:.3f} ms (10x) | tiers "
+        f"{scfg.tiers}")
+    for f in (0.5, 1.0, 1.5):
+        reqs = make_requests(queries, qps=f * rate, slo=scfg.slo, n=2048,
+                             seed=SEED)
+        reset_counts()
+        done = Scheduler(rt, scfg).run(reqs)
+        add(read_counts())
+        s = summarize(done)
+        log(f"scheduler {f}x ({f * rate:.1f} QPS offered, 2048 Poisson "
+            f"requests): p50 {s['p50_ms']:.3f} ms | p99 {s['p99_ms']:.3f} ms"
+            f" | achieved {s['achieved_qps']:.1f} QPS | deadline hit "
+            f"{s['deadline_hit']:.4f} | degraded {s['degraded_frac']:.4f} | "
+            f"shrunk {s['shrunk_frac']:.4f} | {card}")
+        if f == 0.5:
+            full = [c for c in done if c.tier == 0]
+            for c in full:
+                j = c.rid % len(queries)
+                if (not np.array_equal(c.ids, mb_i[j])
+                        or not np.array_equal(c.dists, mb_d[j])):
+                    raise AssertionError(f"0.5x: request {c.rid} differs "
+                                         f"from an unscheduled batch")
+            log(f"  0.5x: all {len(full)} tier-0 completions equal the "
+                f"unscheduled serve_batch of their query (bitwise)")
+    healthy(rt, "after the load sweep", errors)
+    del rts, rt, shard_arrays
+
+    # 5. the BAMG fleet: `ServeRuntime.build` at --disk-n (a BAMG per
+    # 250,000-point shard does not fit the call)
+    dd = paper_dataset("sift-like", n=disk_n, nq=len(queries), seed=SEED,
+                       device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    brt = ServeRuntime.build(dd.base, n_shards, params=BAMGParams(),
+                             config=cfg, n_replicas=n_rep)
+    t_build = time.perf_counter() - t0
+    n_build = read_counts()
+    add(n_build)
+    if n_build["beam_hops_l2"] < n_shards:
+        raise AssertionError(f"fleet build launches {n_build}")
+    reset_counts()
+    bi, bd, _, bt = serve(brt, dd.queries)
+    n_serve = read_counts()
+    add(n_serve)
+    if n_serve["beam_hops"] != n_shards * n_batches:
+        raise AssertionError(f"BAMG fleet launches {n_serve}")
+    healthy(brt, "BAMG fleet")
+    ref_rt = ServeRuntime(brt.shard_vids, [
+        BatchedANNEngine.from_index(i, dataclasses.replace(cfg,
+                                                           backend="ref"))
+        for i in brt.host_indexes])
+    ri, rd, _, _ = serve(ref_rt, dd.queries)
+    np.testing.assert_array_equal(bi, ri)
+    np.testing.assert_allclose(bd, rd, rtol=1e-5, atol=1e-5)
+    log(f"BAMG fleet (reduced: N={disk_n}, {n_shards} shards of "
+        f"{disk_n // n_shards}; a BAMG per 250,000-point shard does not fit "
+        f"the call): ServeRuntime.build {t_build:.2f} s, beam_hops_l2 "
+        f"launches {n_build['beam_hops_l2']} | recall@10 "
+        f"{recall_at_k(bi, dd.gt, 10):.4f} | per-batch median "
+        f"{statistics.median(bt):.3f} ms | auto == ref (ids equal, dists "
+        f"within 1e-5) | {card}")
+    log(f"phase 9 took {time.perf_counter() - t_phase:.1f} s | {card}")
+    return launches
+
+
+def deploy_fresh(dev, card, index, ds, cfg, batch, disk_n, n_insert,
+                 reset_counts, read_counts) -> dict:
+    """Phase 10: deployment at `disk_n`, freshness on `index` (phase 8's
+    BAMG at `disk_n` over `ds`, served by `cfg` in batches of `batch`)
+    with `n_insert` inserts, and the exact BMRNG.  Returns the launches of the
+    kernels this phase ran, by kernel."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.block_assign import bnf_blocks
+    from repro_torch.core.bmrng import (build_bmrng, io_length,
+                                        monotonic_io_path)
+    from repro_torch.core.distances import exact_knn, knn_graph, recall_at_k
+    from repro_torch.core.engine import BAMGParams
+    from repro_torch.data.synthetic import (PAPER_REGIMES, clustered_vectors,
+                                            paper_dataset)
+    from repro_torch.index.delta import FreshService
+    from repro_torch.serve import (BatchedANNEngine, BlueGreenEngine,
+                                   DeploymentManager)
+    from repro_torch.utils.faults import IntegrityError
+
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke" / "deploy"
+    shutil.rmtree(root, ignore_errors=True)
+    launches = {}
+
+    def add(counts):
+        for name, v in counts.items():
+            launches[name] = launches.get(name, 0) + v
+
+    def serve(engine, qs):
+        return np.concatenate([engine.search_batch(qs[s:s + batch], 10)[0]
+                               for s in range(0, len(qs), batch)])
+
+    def must_raise(exc, fn, *args, **kwargs):
+        try:
+            fn(*args, **kwargs)
+        except exc as e:
+            return e
+        raise AssertionError(f"{fn.__name__}{args} did not raise "
+                             f"{exc.__name__}")
+
+    # 1. blue/green deployment at --disk-n
+    dd = paper_dataset("sift-like", n=disk_n, nq=1000, seed=SEED, device=dev)
+    gt = dd.gt[:, :10]
+    dm = DeploymentManager(str(root / "blue_green"))
+
+    def deploy(build_id, seed, min_recall):
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            return dm.deploy(dd.base, build_id, dd.queries, gt,
+                             params=BAMGParams(seed=seed), k=10,
+                             min_recall=min_recall, config=cfg)
+        finally:
+            n = read_counts()
+            add(n)
+            log(f"  deploy {build_id}: {time.perf_counter() - t0:.2f} s "
+                f"(build, publish, verify, validate, promote when it "
+                f"passes) | launches {n}")
+            if n["beam_hops_l2"] < 1 or n["beam_hops"] < 1 or n["pq_adc"] < 1:
+                raise AssertionError(f"deploy {build_id}: launches {n}")
+
+    man1 = deploy("v1", SEED, 0.2)
+    bg = BlueGreenEngine(dm, cfg)
+    ids1 = serve(bg, dd.queries)
+    err = must_raise(ValueError, deploy, "bad", SEED + 1, 1.01)
+    if "failed validation" not in str(err) or dm.active() != "v1" \
+            or "bad" not in dm.builds():
+        raise AssertionError(f"a failed deploy changed ACTIVE: {err}")
+    with open(root / "blue_green" / "builds" / "bad" / "index.npz",
+              "r+b") as f:
+        f.seek(64)
+        f.write(b"\x00\x01\x02\x03")
+    must_raise(IntegrityError, dm.verify, "bad")
+    must_raise(IntegrityError, dm.load, "bad")
+    man2 = deploy("v2", SEED + 2, 0.2)
+    if not np.array_equal(serve(bg, dd.queries), ids1):
+        raise AssertionError("the blue engine changed before refresh")
+    if not bg.refresh() or bg.build_id != "v2" or bg.refresh():
+        raise AssertionError("refresh did not swap to v2 once")
+    ids2 = serve(bg, dd.queries)
+    np.testing.assert_array_equal(
+        ids2, serve(BatchedANNEngine.from_index(dm.load("v2"), cfg),
+                    dd.queries))
+    if dm.rollback() != "v1" or not bg.refresh() or bg.build_id != "v1":
+        raise AssertionError("rollback did not return to v1")
+    np.testing.assert_array_equal(serve(bg, dd.queries), ids1)
+    changed = np.mean((ids2 != ids1).any(1))
+    log(f"deploy (N={disk_n}): v1 validated recall@10 "
+        f"{man1.meta['validated_recall']:.4f}, v2 "
+        f"{man2.meta['validated_recall']:.4f} (min_recall 0.2) | a build "
+        f"at min_recall 1.01 raised and left ACTIVE v1 | a tampered "
+        f"artifact raised IntegrityError on verify and load | refresh "
+        f"swapped to v2, whose ids it serves ({changed:.2%} of rows differ "
+        f"from v1) | rollback to v1 serves v1's ids | "
+        f"history {dm.history()} | {card}")
+
+    # 2. freshness on phase 8's --disk-n BAMG: bootstrap, inserts, deletes,
+    # serve, consolidate, serve again
+    nq = 1000
+    queries = ds.queries[:nq]
+    n0, d = ds.base.shape
+    svc = FreshService(str(root / "fresh"), params=BAMGParams(), config=cfg)
+    t0 = time.perf_counter()
+    svc.bootstrap(index=index)
+    t_boot = time.perf_counter() - t0
+    ins = clustered_vectors(n_insert, d, PAPER_REGIMES["sift-like"][
+        "n_clusters"], seed=SEED + 1)
+    rng = np.random.default_rng(SEED)
+    top = np.unique(ds.gt[:nq, :10])
+    n_dead = min(n0 // 100, len(top))
+    dead = rng.choice(top, size=n_dead, replace=False)
+    t0 = time.perf_counter()
+    ext = svc.insert_batch(ins)
+    t_ins = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for e in dead.tolist():
+        svc.delete(e)
+    t_del = time.perf_counter() - t0
+    st = svc.stats()
+    log(f"fresh: bootstrap from phase 8's --disk-n BAMG (N={n0}, nothing "
+        f"rebuilt; reduced from 100,000 so that the smoke fits its call) "
+        f"{t_boot:.2f} s | {n_insert} inserts (another seed of the "
+        f"generator) {t_ins:.2f} s = {n_insert / t_ins:.1f} inserts/s "
+        f"(host) | {n_dead} deletes of the queries' true top-10 "
+        f"{t_del * 1e3:.1f} ms | overlay {st['overlay_fraction']:.4f} of the "
+        f"base, {st['overlay_memory_bytes'] / 2 ** 20:.1f} MiB | {card}")
+    dead_set = set(dead.tolist())
+    wide = dict(l=512, max_hops=1024)  # a wide budget for the misses
+
+    def on_card(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def first_hits(find, vecs, rows, **kw):
+        """Each of `vecs` queried by itself through `find` (batched, by
+        `batch`): whether its own id `rows` comes back first at distance
+        0."""
+        if not len(vecs):
+            return np.zeros(0, bool)
+        got = [find(vecs[s:s + batch], 10, **kw) for s in range(0, len(vecs),
+                                                                batch)]
+        ids = np.concatenate([i[:, 0] for i, _ in got])
+        return (ids == rows) & (np.concatenate([d[:, 0] for _, d in got]) == 0)
+
+    def check(stage, overlay):
+        """Serve the live corpus and check it.  While the overlay holds
+        the inserts (`overlay`), the exact delta scan must return every
+        one first at distance 0 for its own vector at the served budget.
+        The host path walks the overlay's graph, and what it finds at the
+        served and the wide `l` is logged.  After consolidation the approximate search serves
+        the inserts, and in the reference too the inserts from clusters
+        the base lacks can lie beyond the served budget
+        (tests/test_torch_deploy_fresh.py::
+        test_consolidated_inserts_missed_only_where_reference_misses,
+        which ties the plain version to the reference's engine): the
+        kernels must then miss exactly the inserts the plain version
+        misses, at the served budget and at a wide one (`wide`, an engine
+        whose exact re-rank covers its pool; what it still misses is
+        logged)."""
+        live_x, live_ext = svc.live_corpus()
+        gt_ext = live_ext[exact_knn(on_card(live_x), on_card(queries),
+                                    10)[1].cpu().numpy()]
+        reset_counts()
+        t0 = time.perf_counter()
+        b_ids = np.concatenate([svc.search_batch(queries[s:s + batch], 10)[0]
+                                for s in range(0, nq, batch)])
+        t_b = (time.perf_counter() - t0) * 1e3 / nq
+        n = read_counts()
+        add(n)
+        if n["beam_hops"] != -(-nq // batch) or n["pq_adc"] < 1:
+            raise AssertionError(f"fresh {stage}: launches {n}")
+        t0 = time.perf_counter()
+        h_ids = np.stack([svc.search(q, 10, l=cfg.l)[0]
+                          for q in queries[:100]])
+        t_h = (time.perf_counter() - t0) * 1e3 / 100
+        for ids in (b_ids, h_ids):
+            if set(ids.ravel().tolist()) & dead_set:
+                raise AssertionError(f"fresh {stage}: a deleted id came back")
+        found = first_hits(svc.search_batch, ins, ext)
+        probe = np.linspace(0, n_insert - 1, min(200, n_insert), dtype=int)
+
+        def host_hits(js, l):
+            hits = []
+            for j in js.tolist():
+                i, dist = svc.search(ins[j], 10, l=l)
+                hits.append(bool(i[0] == ext[j] and dist[0] == 0))
+            return np.asarray(hits, bool)
+
+        h_found = host_hits(probe, cfg.l)
+        h_miss = probe[~h_found]
+        h_wide = int(host_hits(h_miss, wide["l"]).sum())
+        if overlay and not found.all():
+            raise AssertionError(
+                f"fresh {stage}: {int((~found).sum())} of {n_insert} "
+                f"inserts not first at distance 0 when queried by "
+                f"themselves")
+        held = "all found (batched)"
+        if not overlay:
+            ints = np.asarray([svc._int_of_ext[int(e)] for e in ext])
+            miss = np.flatnonzero(~found)
+
+            def engine(**kw):
+                return BatchedANNEngine.from_index(
+                    svc.bg.index, dataclasses.replace(cfg, **kw)).search_batch
+
+            if not np.array_equal(found, first_hits(engine(backend="ref"),
+                                                    ins, ints)):
+                raise AssertionError(f"fresh {stage}: the kernels' misses "
+                                     f"are not the plain version's")
+            found_w = {b: first_hits(engine(backend=b, **wide), ins[miss],
+                                     ints[miss]) for b in ("auto", "ref")}
+            if not np.array_equal(found_w["auto"], found_w["ref"]):
+                raise AssertionError(f"fresh {stage}: at l={wide['l']}, "
+                                     f"max_hops={wide['max_hops']} the "
+                                     f"kernels' misses are not the plain "
+                                     f"version's")
+            held = (f"the {len(miss)} (batched) missed are the plain "
+                    f"version's misses; an engine at l={wide['l']}, "
+                    f"max_hops={wide['max_hops']} finds "
+                    f"{int(found_w['auto'].sum())} of them, the plain "
+                    f"version the same ones")
+        first = svc.delta.n_total - n_insert   # inserts: the last rows
+        n_ent = int((svc.bg.engine.entry_cands >= first).sum())
+        log(f"fresh {stage}: recall@10 on the live corpus "
+            f"{recall_at_k(b_ids, gt_ext, 10):.4f} (batched, auto), "
+            f"{recall_at_k(h_ids, gt_ext[:100], 10):.4f} (host, 100 "
+            f"queries) | batched {t_b:.3f} ms a query, host {t_h:.3f} ms | "
+            f"no deleted id returned | inserts first at distance 0 by "
+            f"themselves at l={cfg.l}, max_hops={cfg.max_hops}: "
+            f"{int(found.sum())} of {n_insert} (batched), "
+            f"{int(h_found.sum())} of {len(probe)} (host); {held}; of the "
+            f"host's {len(h_miss)}, {h_wide} come back at l={wide['l']} | "
+            f"entry candidates among the inserts {n_ent} of "
+            f"{len(svc.bg.engine.entry_cands)} | launches {n} | {card}")
+
+    check("before consolidation", overlay=True)
+    n_live = svc.n_live
+    t0 = time.perf_counter()
+    svc.consolidate("gen-1", queries=queries, k=10, min_recall=0.2)
+    t_cons = time.perf_counter() - t0
+    man = svc.manager.manifest("gen-1")
+    if (svc.manager.active() != "gen-1"
+            or svc.manager.history() != ["gen-0", "gen-1"]
+            or man.meta != {"generation": 1, "n_delta": n_insert,
+                            "n_deleted": n_dead}
+            or man.n != n_live or svc.n_live != n_live):
+        raise AssertionError(f"consolidation lineage: {man}, "
+                             f"{svc.manager.history()}")
+    ints = np.asarray([svc._int_of_ext[int(e)] for e in ext])
+    np.testing.assert_array_equal(svc.delta.vectors(ints), ins)
+    keep = np.setdiff1d(np.arange(n0), dead)
+    ints = np.asarray([svc._int_of_ext[int(e)] for e in keep])
+    np.testing.assert_array_equal(svc.delta.vectors(ints), ds.base[keep])
+    if dead_set & set(svc._int_of_ext):
+        raise AssertionError("a deleted external id is still mapped")
+    log(f"fresh consolidate: {t_cons:.2f} s | stages (s): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in svc.timings.items())
+        + f" | validated recall@10 {svc.last_validation_recall:.4f} (min "
+        f"0.2) | promoted gen-1 (history {svc.manager.history()}, meta "
+        f"{man.meta}) | external ids stable for all {n_live} live points | "
+        f"{card}")
+    check("after consolidation", overlay=False)
+    shutil.rmtree(root, ignore_errors=True)
+
+    # 3. the exact BMRNG on 400 points of the same generator
+    xb = clustered_vectors(400, d, PAPER_REGIMES["sift-like"]["n_clusters"],
+                           seed=SEED)
+    blocks = bnf_blocks(knn_graph(on_card(xb), 32).cpu().numpy(), 29,
+                        seed=SEED)
+    t0 = time.perf_counter()
+    g = build_bmrng(xb, blocks)
+    t_b = time.perf_counter() - t0
+    pairs = [rng.choice(400, 2, replace=False).tolist() for _ in range(200)]
+    ios = []
+    for u, q in pairs:
+        path = monotonic_io_path(g.adj, g.dist, g.blocks, u, q)
+        if path is None or path[-1] != q:
+            raise AssertionError(f"BMRNG: no monotonic I/O path {u} -> {q}")
+        dq, seg_end = g.dist[:, q], np.inf
+        for a, b in zip(path, path[1:]):
+            if not g.adj[a, b]:
+                raise AssertionError(f"BMRNG path {u} -> {q}: no edge "
+                                     f"{a} -> {b}")
+            if g.blocks[a] == g.blocks[b] and not dq[b] < dq[a]:
+                raise AssertionError(f"BMRNG path {u} -> {q}: an intra-"
+                                     f"block step does not decrease")
+            if g.blocks[a] != g.blocks[b]:
+                if not dq[a] < seg_end:
+                    raise AssertionError(f"BMRNG path {u} -> {q}: a "
+                                         f"segment end does not decrease")
+                seg_end = dq[a]
+        ios.append(io_length(path, g.blocks))
+    log(f"BMRNG: n=400 d={d}, BNF blocks of 29 ({len(np.unique(blocks))} "
+        f"blocks), distances on {dev} | {int(g.adj.sum())} edges (mean "
+        f"out-degree {g.adj.sum() / 400:.2f}) in {t_b:.2f} s | Theorem 1: a "
+        f"monotonic I/O path on all {len(pairs)} sampled pairs, mean I/O "
+        f"length {np.mean(ios):.2f} blocks | {card}")
+    log(f"phase 10 took {time.perf_counter() - t_phase:.1f} s | {card}")
     return launches
 
 
@@ -775,8 +1387,13 @@ def main(argv=None) -> int:
                          "graph grow faster than N)")
     ap.add_argument("--disk-n", type=int, default=20_000,
                     help="corpus size of phase 8's comparison of BAMG, "
-                         "DiskANN and Starling built on the card")
+                         "DiskANN and Starling built on the card, of phase "
+                         "9's BAMG fleet and of phase 10's deployment")
+    ap.add_argument("--inserts", type=int, default=1000,
+                    help="vectors phase 10 inserts into the fresh index "
+                         "(5%% of --disk-n's BAMG)")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -1524,7 +2141,15 @@ def main(argv=None) -> int:
     log(f"tombstones: {len(dead)} ids masked, none returned | peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB | "
         f"resident index {eng.memory_bytes() / 2 ** 30:.3f} GiB")
-    del eng, arrays, x, adj, codes, codec, ds, exact
+    del eng, arrays, adj, exact
+    torch.cuda.empty_cache()
+
+    # ---- 9. the serving fleet on phase 4's corpus ------------------------
+    fleet_launches = fleet_serving(
+        dev, card, (ds, x, codec, codes),
+        EngineConfig(l=L, max_hops=HOPS, n_entry=NE), B, R, E, args.disk_n,
+        reset_counts, read_counts)
+    del x, codes, codec, ds
     torch.cuda.empty_cache()
 
     # ---- 5. construction path: build a BAMG on the card, serve it ----------
@@ -1658,10 +2283,18 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- 8. the disk-resident index on phase 5's BAMG ---------------------
-    disk_launches = disk_index(
+    disk_launches, (dd, small_idx) = disk_index(
         dev, card, (ds, graph, codec, codes, nav), served,
         EngineConfig(l=L, max_hops=HOPS, n_entry=NE), B, args.disk_n,
         reset_counts, read_counts)
+    torch.cuda.empty_cache()
+
+    # ---- 10. deployment, freshness on phase 8's --disk-n BAMG, BMRNG -------
+    fresh_launches = deploy_fresh(
+        dev, card, small_idx, dd, EngineConfig(l=L, max_hops=HOPS,
+                                               n_entry=NE),
+        B, args.disk_n, args.inserts, reset_counts, read_counts)
+    del small_idx
     torch.cuda.empty_cache()
 
     # ---- 6. DIN serving -------------------------------------------------------
@@ -1702,6 +2335,10 @@ def main(argv=None) -> int:
     # counts of the paths it has always counted
     log("phase 8 launches (not in the kernels line's launches): "
         + json.dumps(disk_launches))
+    log("phase 9 launches (not in the kernels line's launches): "
+        + json.dumps(fleet_launches))
+    log("phase 10 launches (not in the kernels line's launches): "
+        + json.dumps(fresh_launches))
     def on_card(t):
         if t is None:
             return None
@@ -1745,6 +2382,7 @@ def main(argv=None) -> int:
                                 ", k.transpose(1, 2), v.transpose(1, 2), "
                                 "attn_mask=pos < cache_len, enable_gqa=True)")
         kernels.append(entry)
+    log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s | {card}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

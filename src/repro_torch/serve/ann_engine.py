@@ -197,7 +197,9 @@ class BatchedANNEngine:
 
     def replicate(self, device) -> "BatchedANNEngine":
         """A copy of this engine with its arrays on `device`; fault state
-        is not shared with the original."""
+        is not shared with the original.  On the original's own device
+        `.to` copies nothing, so the copy shares its arrays (serving
+        replicas on one card cost no memory)."""
         new = copy.copy(self)
         new._fault = None
         return new.place(device)

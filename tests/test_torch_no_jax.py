@@ -52,7 +52,16 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.kernels.flash_decode.ops",
             "repro_torch.kernels.flash_decode.ref",
             "repro_torch.models.attention", "repro_torch.models.transformer",
-            "repro_torch.configs.olmo_1b"} <= set(mods)
+            "repro_torch.configs.olmo_1b", "repro_torch.core.rng_rules",
+            "repro_torch.core.bmrng", "repro_torch.launch.mesh",
+            "repro_torch.serve.runtime.placement",
+            "repro_torch.serve.runtime.instructions",
+            "repro_torch.serve.runtime.runtime",
+            "repro_torch.serve.runtime.scheduler",
+            "repro_torch.serve.frontend", "repro_torch.serve.deploy",
+            "repro_torch.index.delta.layer", "repro_torch.index.delta.engine",
+            "repro_torch.index.delta.consolidate",
+            "repro_torch.index.delta.service"} <= set(mods)
     code = "\n".join([
         "import importlib, sys, runpy",
         "for name in ('jax', 'jaxlib', 'repro'):",
