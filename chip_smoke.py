@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's batched BAMG query and construction paths,
 its disk-resident index, its serving fleet, deployment and freshness, DIN
-serving and OLMo-1B decode serving on one NVIDIA GPU.
+serving and LM serving (OLMo-1B, Gemma-7B, H2O-Danube3-4B,
+Qwen1.5-MoE-A2.7B, Moonlight-16B-A3B) on one NVIDIA GPU.
 
 Run from the root of a checkout, with one card:
 
@@ -9,7 +10,8 @@ Run from the root of a checkout, with one card:
     python3 chip_smoke.py --n 100000 --build-n 20000 --disk-n 5000  # quicker
 
 Phases, in the order they run (9 runs right after 4, on its corpus; 8
-right after 5, on its BAMG; 10 right after 8, on its index); any failed
+right after 5, on its BAMG; 10 right after 8, on its index; 11 last);
+any failed
 check raises and the script exits nonzero:
 
 1. card: name and power limit (nvidia-smi), TF32 off for matmul and cuDNN;
@@ -33,11 +35,14 @@ check raises and the script exits nonzero:
    Dh = 16, 120, 128 and 256, ragged S, cache_len ragged, 1, S, 0 (zeros)
    and > S (clamped), f32 and bf16 caches, then one decode_32k layer (B = 8,
    H = Hkv = 16, Dh = 128, S = 32,768, bf16), the kernel bench's shape
-   (B = 4, H = 32, Hkv = 8, S = 8,192) and one long_500k layer (B = 1,
-   S = 524,288); times by CUDA events beside the plain version, a PyTorch
-   yardstick where one exists, and the least time the card could take
-   (`bound_ms`); for flash-decode also the bytes of its bound over its time
-   (GB/s) and their share of the card's 3.35 TB/s;
+   (B = 4, H = 32, Hkv = 8, S = 8,192), one long_500k layer (B = 1,
+   S = 524,288) and phase 11's decode_32k layers of gemma-7b (B = 2,
+   H = Hkv = 16, Dh = 256, S = 32,768) and h2o-danube-3-4b (B = 128,
+   H = 32, Hkv = 8, Dh = 120, its 4,096-slot ring); times by CUDA
+   events beside the plain version, a PyTorch yardstick where one
+   exists, and the least time the card could take (`bound_ms`); for
+   flash-decode also the bytes of its bound over its time (GB/s) and
+   their share of the card's 3.35 TB/s;
 4. query path: `paper_dataset("sift-like")` at `--n` with exact top-100
    ground truth, an exact kNN graph at BAMG's serving width R = 32, PQ
    trained and encoded on the card, and 1,024 queries served in batches of
@@ -136,7 +141,32 @@ check raises and the script exits nonzero:
    time, tokens/s, the card's busy share and the kernel's part of it;
    then the same 16 steps once more as an f32 oracle (the bf16 weights
    cast up, the plain version, the same cache, the kernel run's tokens),
-   with max and mean |auto - oracle| and |ref - oracle|.
+   with max and mean |auto - oracle| and |ref - oracle|;
+11. the four other LM archs at their full configs, one at a time, each
+   from bf16 weights that `init_lm_params(..., dtype=torch.bfloat16)`
+   draws on the card, freed before the next: B prompts from `lm_batch`
+   and 16 greedy steps under "auto" and "ref" (fed auto's tokens), then
+   decode_32k on a cache drawn N(0, 1), 16 steps at position 32,767 under
+   both -- gemma-7b B = 8 x 1,024 tokens, the f32 teacher-forced check
+   (4 steps, the bf16 weights cast up), decode_32k at B = 2 (the cell's
+   128 would need 1.92 TB of cache); h2o-danube-3-4b B = 4 x 4,608
+   tokens (past its 4,096 window: a rolled ring, every decode write
+   wraps), the f32 check, decode_32k at the cell's B = 128 on its
+   4,096-slot ring (48.3 GB) and long_500k at B = 1, position 524,287;
+   qwen2-moe-a2.7b B = 8 x 1,024, decode_32k at B = 4; moonshot-v1-16b-
+   a3b B = 8 x 1,024 and no decode_32k (one row is 12.9 GB of cache
+   beside 57.8 GB of weights).  flash_decode must launch 2 x layers x
+   steps under auto and never under ref; dense archs are held to phase
+   7's rule, MoE archs to it on every row whose routes (each layer's
+   experts and router logits, recorded in every run) have matched so far,
+   and their routing to the same rule: router logits within 0.25 of ref's
+   on those rows, and a row's top-k set may differ only where ref's margin
+   between its k-th and (k+1)-th router logit is below 0.25; that row
+   then leaves the comparison.  A third MoE run, "ref" fed auto's tokens
+   and auto's experts, keeps every row: its router logits and then its
+   logits are held to the same rule on all of them.  Each arch logs
+   prefill ms and tokens/s, the step's median, min and max and tokens/s,
+   the card's busy share, the peak memory and the launches.
 
 The last lines are the script's time, the card's nvidia-smi line, one JSON
 object with every kernel's numbers, and `{"ok": true, "device": {...}}`.
@@ -147,6 +177,7 @@ stands outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import statistics
@@ -343,6 +374,252 @@ def din_serving(dev, card: str, reset_counts, read_counts) -> int:
     return launches["auto"]["l2_topk"]
 
 
+# ---------------------------------------------------------------------------
+# LM serving (phases 7 and 11)
+# ---------------------------------------------------------------------------
+# bf16 logits (std about 1, the largest about 5): the kernel and the plain
+# version differ in the f32 attention sums at about 1e-7, and bf16 layers
+# of random weights spread that over most logits at a few bf16 ulps (2^-5
+# at 4); a fault in the kernel moves them by O(1).  0.25 is a quarter of
+# the logits' spread and 8 ulps at the largest
+LM_TOL = 0.25
+# MoE route flips are also logged by the `ref` run's gap between its
+# k-th and (k+1)-th expert probability: how many came at a gap this large
+ROUTE_TIE = 1e-3
+
+
+def synced(fn):
+    """fn() between two syncs of the card; returns (its result, host ms)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def lm_decode(p, c, caches, logits, positions, n, backend, feed=()):
+    """n greedy decode steps (kv_mode "local") from `logits`, step i at
+    positions(i) and fed feed[i] where given (not None), else the last
+    logits' argmax; returns (per-step logits (n, B, V) f32, tokens,
+    per-step ms)."""
+    import torch
+
+    from repro_torch.models.transformer import decode_step
+    steps, toks, times = [], [], []
+    for i in range(n):
+        tok = (feed[i] if i < len(feed) and feed[i] is not None
+               else logits.argmax(-1)[:, None].int())
+        pos = positions(i)
+        (logits, caches), ms = synced(lambda: decode_step(
+            p, c, tok, pos, caches, kv_mode="local", backend=backend))
+        steps.append(logits.float())
+        toks.append(tok)
+        times.append(ms)
+    return torch.stack(steps), toks, times
+
+
+def lm_agree(name, got, want, tol=LM_TOL):
+    """Logits within `tol`; argmax equal wherever `want`'s top-2 margin
+    exceeds it.  Returns a log fragment: max and mean |diff|, the share of
+    logits that differ, positions checked."""
+    import torch
+    d = (got - want).abs()
+    if float(d.max()) > tol:
+        raise AssertionError(f"{name}: logits differ by {float(d.max())}"
+                             f" > {tol}")
+    top2 = want.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > tol
+    if not torch.equal(got.argmax(-1)[sure], want.argmax(-1)[sure]):
+        raise AssertionError(f"{name}: greedy tokens differ")
+    share = float((d > 0).float().mean())
+    return (f"logits max |auto - ref| {float(d.max()):.4g} (tol {tol}), "
+            f"mean {float(d.mean()):.4g}, {share:.2%} of logits differ, "
+            f"max |ref logit| "
+            f"{float(want.abs().max()):.4g}; greedy tokens equal at "
+            f"{int(sure.sum())} of {sure.numel()} positions with margin "
+            f"> tol")
+
+
+def lm_busy_log(name, step, med, n=8):
+    """Log the card time per step that torch.profiler's CUDA activity sees
+    over n calls of step(i), the part of it in flash_decode, kernel runs
+    per step, and the busy time's share of the unprofiled median `med`."""
+    import torch
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            step(i)
+        torch.cuda.synchronize()
+    avgs = [a for a in prof.key_averages() if a.self_device_time_total > 0]
+    dev_ms = sum(a.self_device_time_total for a in avgs) / 1e3 / n
+    fd_ms = sum(a.self_device_time_total for a in avgs
+                if "flash_decode" in a.key) / 1e3 / n
+    runs = sum(a.count for a in avgs) / n
+    log(f"  {name} auto: card busy {dev_ms:.4f} ms per step ({runs:.1f} "
+        f"kernel runs; flash_decode {fd_ms:.4f} ms, "
+        f"{fd_ms / dev_ms if dev_ms else 0:.2%} of busy) = "
+        f"{dev_ms / med:.2%} of the per-step median")
+
+
+def expect_launches(launches, n_fd):
+    """Every kernel's launches 0 but flash_decode's, which must be n_fd."""
+    want = {name: 0 for name in launches}
+    want["flash_decode"] = n_fd
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+
+
+def prefill_cache(params, cfg, prompt, n_new):
+    """serve_prefill over `prompt`, its caches moved into ones with room
+    for n_new more positions (a sliding window's ring keeps its size);
+    returns (last logits, (ck, cv, lengths), prefill ms)."""
+    from repro_torch.models.transformer import (cache_len_for, init_cache,
+                                                serve_prefill)
+    b, p_len = prompt.shape
+    (logits, (ck, cv), lens), ms = synced(
+        lambda: serve_prefill(params, cfg, prompt))
+    if cache_len_for(cfg, p_len + n_new) > ck.shape[2]:
+        ck0, cv0, _ = init_cache(cfg, b, p_len + n_new, dtype=ck.dtype,
+                                 device=ck.device)
+        ck0[:, :, :p_len], cv0[:, :, :p_len] = ck, cv
+        ck, cv = ck0, cv0
+    return logits, (ck, cv, lens), ms
+
+
+def teacher_forced(params32, cfg32, prompt, reset_counts, read_counts,
+                   n32=4) -> str:
+    """The f32 path for n32 greedy steps under "auto": each token must be
+    the argmax of a fresh teacher-forced prefill over the extended
+    sequence wherever that prefill's top-2 margin exceeds 1e-3
+    (tests/test_lm.py).  Returns a log fragment."""
+    import torch
+
+    from repro_torch.models.transformer import serve_prefill
+    b, p_len = prompt.shape
+    logits, caches, _ = prefill_cache(params32, cfg32, prompt, n32)
+    reset_counts()
+    steps, toks, _ = lm_decode(
+        params32, cfg32, caches, logits,
+        lambda i: torch.full((b,), p_len + i, device=prompt.device), n32,
+        "auto")
+    expect_launches(read_counts(), n32 * cfg32.n_layers * 2)
+    del caches
+    seq, checked, worst = prompt, 0, 0.0
+    for i in range(n32):
+        want = serve_prefill(params32, cfg32, seq)[0]
+        if i:       # step i - 1's logits: the token after seq[:, :-1]
+            worst = max(worst, float((steps[i - 1] - want).abs().max()))
+        top2 = want.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 1e-3
+        if not torch.equal(want.argmax(-1)[sure], toks[i][:, 0].long()[sure]):
+            raise AssertionError(f"f32 step {i}: decode's token differs from "
+                                 f"the teacher-forced prefill's")
+        checked += int(sure.sum())
+        seq = torch.cat([seq, toks[i]], 1)
+    return (f"{n32} decode steps (auto) == teacher-forced prefill argmax at "
+            f"{checked} of {n32 * b} positions with margin > 1e-3; decode vs "
+            f"prefill logits max |diff| {worst:.3g}")
+
+
+class RouteLog:
+    """The MoE routes of decode runs: while `recording(run)` is open,
+    `moe.route` is wrapped to keep, per call, the experts the run's own
+    router chose and its logits (f32, dead experts at -1e30).  Under
+    `recording(run, lead)` the run is fed the `lead` run's experts, call
+    for call, with its own probabilities as their gates: the routes'
+    counterpart of feeding a run another's tokens."""
+
+    def __init__(self, moe):
+        self.moe, self.calls, self.leads = moe, {}, {}
+
+    def recording(self, run, lead=None):
+        import torch
+
+        route, calls = self.moe.route, self.calls.setdefault(run, [])
+        led = self.calls[lead] if lead else None
+        self.leads[run] = lead
+
+        def recorded(x, w, cfg):
+            gates, eids, aux = route(x, w, cfg)
+            logits = torch.nn.functional.pad(
+                x.float() @ w.float(), (0, cfg.n_experts_padded
+                                        - cfg.n_experts), value=-1e30)
+            calls.append((eids, logits))
+            if led is not None:
+                eids = led[len(calls) - 1][0]
+                g = logits.softmax(-1).gather(1, eids.long())
+                gates = g / g.sum(-1, keepdim=True).clamp_min(1e-9)
+            return gates, eids, aux
+
+        @contextlib.contextmanager
+        def patched():
+            self.moe.route = recorded
+            try:
+                yield
+            finally:
+                self.moe.route = route
+        return patched()
+
+    def agree(self, name, got, want, run, n_layers, k, tol=LM_TOL):
+        """Phase 7's rule on the routing decisions, then on the logits, of
+        "auto" against `run` (a "ref" run).  A router is a linear readout of
+        the residual stream, as the LM head is, and its top k a decision on
+        its logits, as the greedy token is: on every row still compared,
+        the router's logits must lie within `tol` of `run`'s at every layer,
+        and its top-k set may differ from `run`'s own only where `run`'s
+        margin between its k-th and (k+1)-th logit is below `tol`.  A run
+        on its own routes diverges after such a flip, so the row leaves the
+        comparison from that step on; a run fed auto's routes keeps every
+        row.  The rows kept are held to `lm_agree`."""
+        import torch
+        n, b = got.shape[:2]
+        fed = self.leads[run] is not None
+        alive = torch.ones(b, dtype=torch.bool, device=got.device)
+        keep = torch.zeros((n, b), dtype=torch.bool, device=got.device)
+        flips, worst, over = [], 0.0, 0
+        for i in range(n):
+            for li in range(n_layers):
+                (ea, la), (er, lr) = (self.calls[r][i * n_layers + li]
+                                      for r in ("auto", run))
+                d = (la - lr).abs().amax(-1)
+                if bool((d[alive] > tol).any()):
+                    raise AssertionError(
+                        f"{name} ({run}): step {i} layer {li}: router "
+                        f"logits differ by {float(d[alive].max())} > {tol}")
+                worst = max(worst, float(d[alive].max()) if alive.any()
+                            else 0.0)
+                differ = ((ea.sort(-1).values != er.sort(-1).values).any(-1)
+                          & alive)
+                if not differ.any():
+                    continue
+                top = lr[differ].topk(k + 1, dim=-1).values
+                margin = top[:, k - 1] - top[:, k]
+                if bool((margin >= tol).any()):
+                    raise AssertionError(
+                        f"{name} ({run}): step {i} layer {li}: routes differ "
+                        f"where the k-th / (k+1)-th logit margin is "
+                        f"{float(margin.max())} >= {tol}")
+                probs = lr[differ].softmax(-1).topk(k + 1, dim=-1).values
+                gap = probs[:, k - 1] - probs[:, k]
+                over += int((gap >= ROUTE_TIE).sum())
+                flips.append((float(margin.max()), float(gap.max())))
+                if not fed:
+                    alive &= ~differ
+            keep[i] = alive
+        frag = (lm_agree(f"{name} ({run})", got[keep], want[keep], tol)
+                if keep.any() else "no row kept its routes")
+        big = max(flips, default=(0.0, 0.0))
+        return (f"{frag}; routes: max |router logit auto - {run}| "
+                f"{worst:.4g} (tol {tol}); {len(flips)} flips within the "
+                f"margin (largest margin {big[0]:.3g}, its probability gap "
+                f"{big[1]:.3g}; {over} at a gap >= {ROUTE_TIE})"
+                + ("" if fed else f", {b - int(alive.sum())} of {b} rows "
+                   f"flipped") + f"; {int(keep.sum())} of {n * b} step rows "
+                f"compared")
+
+
 def lm_serving(dev, card, reset_counts, read_counts) -> int:
     """Phase 7: OLMo-1B decode serving at its full config; returns the
     flash_decode kernel's launches on the bf16 `auto` runs (the requests
@@ -372,84 +649,6 @@ def lm_serving(dev, card, reset_counts, read_counts) -> int:
         f"{cfg.n_params() * 2 / 1e9:.3f} GB in bf16 | init_lm_params on the "
         f"card {time.perf_counter() - t0:.2f} s")
     n_layers = cfg.n_layers
-    # bf16 logits (std about 1, the largest about 5): the kernel and the
-    # plain version differ in the f32 attention sums at about 1e-7, and 16
-    # bf16 layers of random weights spread that over most logits at a few
-    # bf16 ulps (2^-5 at 4); a fault in the kernel moves them by O(1).
-    # 0.25 is a quarter of the logits' spread and 8 ulps at the largest
-    tol = 0.25
-
-    def synced(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
-    def decode(p, c, caches, logits, positions, n, backend, feed=()):
-        """n greedy decode steps from `logits`, step i at positions(i) and
-        fed feed[i] where given (not None), else the last logits' argmax;
-        returns (per-step logits (n, B, V) f32, tokens, per-step ms)."""
-        steps, toks, times = [], [], []
-        for i in range(n):
-            tok = (feed[i] if i < len(feed) and feed[i] is not None
-                   else logits.argmax(-1)[:, None].int())
-            pos = positions(i)
-            (logits, caches), ms = synced(lambda: decode_step(
-                p, c, tok, pos, caches, backend=backend))
-            steps.append(logits.float())
-            toks.append(tok)
-            times.append(ms)
-        return torch.stack(steps), toks, times
-
-    def agree(name, got, want, tol):
-        """Logits within `tol`; argmax equal wherever `want`'s top-2
-        margin exceeds it.  Returns a log fragment: max and mean |diff|,
-        the share of logits that differ, positions checked."""
-        d = (got - want).abs()
-        if float(d.max()) > tol:
-            raise AssertionError(f"{name}: logits differ by {float(d.max())}"
-                                 f" > {tol}")
-        top2 = want.topk(2, dim=-1).values
-        sure = (top2[..., 0] - top2[..., 1]) > tol
-        if not torch.equal(got.argmax(-1)[sure], want.argmax(-1)[sure]):
-            raise AssertionError(f"{name}: greedy tokens differ")
-        share = float((d > 0).float().mean())
-        return (f"logits max |auto - ref| {float(d.max()):.4g} (tol {tol}), "
-                f"mean {float(d.mean()):.4g}, {share:.2%} of logits differ, "
-                f"max |ref logit| "
-                f"{float(want.abs().max()):.4g}; greedy tokens equal at "
-                f"{int(sure.sum())} of {sure.numel()} positions with margin "
-                f"> tol")
-
-    def busy(step, n=8):
-        """Card time per step that torch.profiler's CUDA activity sees over
-        n calls of step(i), the part of it in flash_decode, and kernel runs
-        per step."""
-        torch.cuda.synchronize()
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for i in range(n):
-                step(i)
-            torch.cuda.synchronize()
-        avgs = [a for a in prof.key_averages() if a.self_device_time_total > 0]
-        return (sum(a.self_device_time_total for a in avgs) / 1e3 / n,
-                sum(a.self_device_time_total for a in avgs
-                    if "flash_decode" in a.key) / 1e3 / n,
-                sum(a.count for a in avgs) / n)
-
-    def busy_log(name, step, med):
-        dev_ms, fd_ms, runs = busy(step)
-        log(f"  {name} auto: card busy {dev_ms:.4f} ms per step ({runs:.1f} "
-            f"kernel runs; flash_decode {fd_ms:.4f} ms, "
-            f"{fd_ms / dev_ms if dev_ms else 0:.2%} of busy) = "
-            f"{dev_ms / med:.2%} of the per-step median")
-
-    def expect(launches, n_fd):
-        want = {name: 0 for name in launches}
-        want["flash_decode"] = n_fd
-        if launches != want:
-            raise AssertionError(f"launches {launches}, expected {want}")
 
     # requests: B = 8 prompts of 1,024 tokens, a cache of 1,024 + 32, then
     # 32 greedy steps under the kernel and under the plain version (which
@@ -458,31 +657,28 @@ def lm_serving(dev, card, reset_counts, read_counts) -> int:
     prompt = torch.from_numpy(lm_batch(0, b, p_len, cfg.vocab,
                                        seed=SEED)[0]).to(dev)
     serve_prefill(params, cfg, prompt[:, :64])                   # warm-up
-    (logits0, (ck, cv), lens), ms_pre = synced(
-        lambda: serve_prefill(params, cfg, prompt))
-    ck0, cv0, _ = init_cache(cfg, b, p_len + n_new, device=dev)
-    ck0[:, :, :p_len], cv0[:, :, :p_len] = ck, cv
-    del ck, cv
+    logits0, (ck0, cv0, lens), ms_pre = prefill_cache(params, cfg, prompt,
+                                                      n_new)
     runs, launches = {}, {}
     for backend in ("auto", "ref"):
         caches = (ck0.clone(), cv0.clone(), lens)
         reset_counts()
-        runs[backend] = decode(params, cfg, caches, logits0,
-                               lambda i: torch.full((b,), p_len + i,
-                                                    device=dev),
-                               n_new, backend,
-                               () if backend == "auto" else runs["auto"][1])
+        runs[backend] = lm_decode(params, cfg, caches, logits0,
+                                  lambda i: torch.full((b,), p_len + i,
+                                                       device=dev),
+                                  n_new, backend,
+                                  () if backend == "auto" else runs["auto"][1])
         launches[backend] = read_counts()
         del caches
-    expect(launches["auto"], n_new * n_layers * 2)
-    expect(launches["ref"], 0)
-    agreed = agree("requests", runs["auto"][0], runs["ref"][0], tol)
+    expect_launches(launches["auto"], n_new * n_layers * 2)
+    expect_launches(launches["ref"], 0)
+    agreed = lm_agree("requests", runs["auto"][0], runs["ref"][0])
     med = {k: statistics.median(r[2]) for k, r in runs.items()}
     # the card's busy time per step over 8 more steps on a copy of the
     # prompt's cache; the share is taken of the unprofiled median
     caches = (ck0.clone(), cv0.clone(), lens)
     tok = runs["auto"][1][0]
-    busy_log("requests", lambda i: decode_step(
+    lm_busy_log("requests", lambda i: decode_step(
         params, cfg, tok, torch.full((b,), p_len + i, device=dev), caches),
         med["auto"])
     del caches
@@ -494,37 +690,12 @@ def lm_serving(dev, card, reset_counts, read_counts) -> int:
     req_launches = launches["auto"]["flash_decode"]
     del runs, ck0, cv0
 
-    # the same path in f32 for 4 steps: each greedy token is the argmax of
-    # a fresh teacher-forced prefill over the extended sequence wherever
-    # that prefill's top-2 margin exceeds 1e-3 (tests/test_lm.py)
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    n32 = 4
-    logits, (ck, cv), lens = serve_prefill(params32, cfg32, prompt)
-    ck0, cv0, _ = init_cache(cfg32, b, p_len + n32, device=dev)
-    ck0[:, :, :p_len], cv0[:, :, :p_len] = ck, cv
-    del ck, cv
-    reset_counts()
-    steps, toks, _ = decode(params32, cfg32, (ck0, cv0, lens), logits,
-                            lambda i: torch.full((b,), p_len + i, device=dev),
-                            n32, "auto")
-    expect(read_counts(), n32 * n_layers * 2)
-    del ck0, cv0
-    seq, checked, worst = prompt, 0, 0.0
-    for i in range(n32):
-        want = serve_prefill(params32, cfg32, seq)[0]
-        if i:       # step i - 1's logits: the token after seq[:, :-1]
-            worst = max(worst, float((steps[i - 1] - want).abs().max()))
-        top2 = want.topk(2, dim=-1).values
-        sure = (top2[:, 0] - top2[:, 1]) > 1e-3
-        if not torch.equal(want.argmax(-1)[sure], toks[i][:, 0].long()[sure]):
-            raise AssertionError(f"f32 step {i}: decode's token differs from "
-                                 f"the teacher-forced prefill's")
-        checked += int(sure.sum())
-        seq = torch.cat([seq, toks[i]], 1)
-    log(f"LM f32: {n32} decode steps (auto) == teacher-forced prefill argmax "
-        f"at {checked} of {n32 * b} positions with margin > 1e-3; decode vs "
-        f"prefill logits max |diff| {worst:.3g}")
-    del params32, steps, seq
+    # the same path in f32 for 4 steps, held to fresh teacher-forced
+    # prefills
+    log("LM f32: " + teacher_forced(
+        params32, dataclasses.replace(cfg, dtype="float32"), prompt,
+        reset_counts, read_counts))
+    del params32
     torch.cuda.empty_cache()
 
     # decode_32k at B = 8 (the cell's batch is 128; its cache would be 550
@@ -548,23 +719,23 @@ def lm_serving(dev, card, reset_counts, read_counts) -> int:
     logits = torch.zeros((b, cfg.vocab), device=dev)
     n_steps = 16
     at_end = lambda i: torch.full((b,), s - 1, device=dev)    # noqa: E731
-    decode(params, cfg, (ck, cv, lens), logits, at_end, 2, "auto",
-           [first] * 2)                                          # warm-up
+    lm_decode(params, cfg, (ck, cv, lens), logits, at_end, 2, "auto",
+              [first] * 2)                                       # warm-up
     runs = {}
     for backend in ("auto", "ref"):
         reset_counts()
-        runs[backend] = decode(params, cfg, (ck, cv, lens), logits, at_end,
-                               n_steps, backend,
-                               [first] if backend == "auto"
-                               else runs["auto"][1])
+        runs[backend] = lm_decode(params, cfg, (ck, cv, lens), logits, at_end,
+                                  n_steps, backend,
+                                  [first] if backend == "auto"
+                                  else runs["auto"][1])
         launches[backend] = read_counts()
-    expect(launches["auto"], n_steps * n_layers * 2)
-    expect(launches["ref"], 0)
-    agreed = agree("decode_32k", runs["auto"][0], runs["ref"][0], tol)
+    expect_launches(launches["auto"], n_steps * n_layers * 2)
+    expect_launches(launches["ref"], 0)
+    agreed = lm_agree("decode_32k", runs["auto"][0], runs["ref"][0])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     med = {k: statistics.median(r[2]) for k, r in runs.items()}
     tok = runs["auto"][1][-1]
-    busy_log("decode_32k", lambda i: decode_step(
+    lm_busy_log("decode_32k", lambda i: decode_step(
         params, cfg, tok, at_end(i), (ck, cv, lens)), med["auto"])
     log(f"LM decode_32k: B={b} (cell 128) S={s} | cache fill {t_fill:.2f} s "
         f"| {n_steps} steps at position {s - 1}: auto median "
@@ -579,10 +750,10 @@ def lm_serving(dev, card, reset_counts, read_counts) -> int:
     # plain version, the same bf16 cache, fed the kernel run's tokens
     oracle_p = compute_cast(params, torch.float32)
     reset_counts()
-    oracle = decode(oracle_p, dataclasses.replace(cfg, dtype="float32"),
-                    (ck, cv, lens), logits, at_end, n_steps, "ref",
-                    runs["auto"][1])[0]
-    expect(read_counts(), 0)
+    oracle = lm_decode(oracle_p, dataclasses.replace(cfg, dtype="float32"),
+                       (ck, cv, lens), logits, at_end, n_steps, "ref",
+                       runs["auto"][1])[0]
+    expect_launches(read_counts(), 0)
     del oracle_p
     gap = {}
     for backend in ("auto", "ref"):
@@ -598,6 +769,190 @@ def lm_serving(dev, card, reset_counts, read_counts) -> int:
     del ck, cv, runs, params, oracle
     torch.cuda.empty_cache()
     return req_launches + launches["auto"]["flash_decode"]
+
+
+def lm_archs(dev, card, reset_counts, read_counts) -> dict:
+    """Phase 11: gemma-7b, h2o-danube-3-4b, qwen2-moe-a2.7b and
+    moonshot-v1-16b-a3b served one at a time at their full configs;
+    returns the flash_decode kernel's launches on each arch's bf16 `auto`
+    runs."""
+    import torch
+
+    from repro_torch.configs import (gemma_7b, h2o_danube3_4b,
+                                     moonshot_v1_16b_a3b, qwen2_moe_a2_7b)
+
+    t_phase = time.perf_counter()
+    # (config, requests' batch and prompt length, the f32 check, decode_32k
+    # batch, long_500k): decode_32k cut to what fits beside the weights
+    # (gemma: 128 rows would need 1.92 TB of cache, 2 need 30.1 GB; qwen:
+    # 4 rows 25.8 GB; moonshot: one row is 12.9 GB beside 57.8 GB of
+    # weights, none); danube's 4,096-slot ring holds the cell's 128 rows in
+    # 48.3 GB and its long_500k row in 0.38 GB
+    plans = ((gemma_7b, 8, 1024, True, 2, False),
+             (h2o_danube3_4b, 4, 4608, True, 128, True),
+             (qwen2_moe_a2_7b, 8, 1024, False, 4, False),
+             (moonshot_v1_16b_a3b, 8, 1024, False, None, False))
+    out = {}
+    for mod, *plan in plans:
+        out[mod.ARCH_ID] = serve_arch(dev, card, mod.model_config(), *plan,
+                                      reset_counts, read_counts)
+        torch.cuda.empty_cache()
+    log(f"phase 11 took {time.perf_counter() - t_phase:.1f} s | {card}")
+    return out
+
+
+def serve_arch(dev, card, cfg, b, p_len, f32_check, b32, long_500k,
+               reset_counts, read_counts) -> int:
+    """One arch of phase 11 from bf16 weights drawn on the card: B = b
+    prompts of p_len tokens and 16 greedy steps under "auto" and "ref"
+    (fed auto's tokens); for dense archs the f32 teacher-forced check;
+    decode_32k at B = b32 (None: not run) and, where asked, long_500k at
+    B = 1, each on a cache drawn N(0, 1), 16 steps at the shape's last
+    position under both backends.  MoE archs are held to the routing-aware
+    rule (`RouteLog.agree`), against "ref" and against "ref" fed auto's
+    routes.  Returns flash_decode's launches over the bf16 `auto` runs."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import (compute_cast, decode_step,
+                                                init_cache, init_lm_params,
+                                                serve_prefill)
+
+    t_arch = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params, ms_init = synced(lambda: init_lm_params(
+        cfg, gen, device=dev, dtype=torch.bfloat16))
+    stored = sum(t.numel() * t.element_size() for t in (
+        *params["layers"].values(), *params.values()) if torch.is_tensor(t))
+    ffn = (f"{cfg.moe.n_experts} experts (stored {cfg.moe.n_experts_padded})"
+           f" top-{cfg.moe.top_k} x {cfg.moe.d_ff_expert} + shared "
+           f"{cfg.moe.d_ff_shared}" if cfg.moe else f"ff={cfg.d_ff}")
+    log(f"LM {cfg.name}: {cfg.n_layers}L d={cfg.d_model} H={cfg.n_heads} "
+        f"Hkv={cfg.n_kv_heads} Dh={cfg.d_head} {ffn} V={cfg.vocab} "
+        f"window={cfg.sliding_window} {cfg.norm} {cfg.activation} | "
+        f"{cfg.n_params()} parameters ({cfg.n_active_params()} active), "
+        f"{stored / 1e9:.3f} GB stored in bf16 | init_lm_params on the card "
+        f"{ms_init / 1e3:.2f} s")
+    n_layers, n_steps = cfg.n_layers, 16
+    routes = RouteLog(moe) if cfg.moe else None
+    total = 0
+
+    def run_both(name, caches, logits, positions, feed, fresh=False):
+        """n_steps under "auto" (fed `feed`) then "ref" (fed auto's tokens)
+        and, for MoE archs, "ref" again fed auto's tokens and routes, on
+        `caches` or, where `fresh`, each on its own copy (steps that write
+        new slots); checks launches and agreement.  Returns (runs, log
+        fragment)."""
+        nonlocal total
+        runs = {}
+        for run in ("auto", "ref") + (("ref_routed",) if routes else ()):
+            ck, cv, lens = caches
+            copy = (ck.clone(), cv.clone(), lens) if fresh else caches
+            reset_counts()
+            with (routes.recording(run, "auto" if run == "ref_routed"
+                                   else None) if routes
+                  else contextlib.nullcontext()):
+                runs[run] = lm_decode(
+                    params, cfg, copy, logits, positions, n_steps,
+                    "auto" if run == "auto" else "ref",
+                    feed if run == "auto" else runs["auto"][1])
+            expect_launches(read_counts(), n_steps * n_layers * 2
+                            if run == "auto" else 0)
+            del copy
+        total += n_steps * n_layers * 2
+        if not routes:
+            return runs, lm_agree(name, runs["auto"][0], runs["ref"][0])
+        agreed = " | ".join(
+            routes.agree(name, runs["auto"][0], runs[run][0], run, n_layers,
+                         cfg.moe.top_k) for run in ("ref", "ref_routed"))
+        routes.calls.clear()
+        return runs, agreed
+
+    def step_log(runs, rows):
+        t = runs["auto"][2]
+        med = statistics.median(t)
+        return (f"{n_steps} decode steps: auto median {med:.3f} ms, min "
+                f"{min(t):.3f}, max {max(t):.3f} ({rows / med * 1e3:.1f} "
+                f"tokens/s), ref {statistics.median(runs['ref'][2]):.3f} ms",
+                med)
+
+    # requests: b prompts of p_len tokens (lm_batch), 16 greedy steps
+    prompt = torch.from_numpy(lm_batch(0, b, p_len, cfg.vocab,
+                                       seed=SEED)[0]).to(dev)
+    serve_prefill(params, cfg, prompt[:, :64])                   # warm-up
+    logits0, caches, ms_pre = prefill_cache(params, cfg, prompt, n_steps)
+    runs, agreed = run_both(
+        "requests", caches, logits0,
+        lambda i: torch.full((b,), p_len + i, device=dev), (), fresh=True)
+    steps, med = step_log(runs, b)
+    tok = runs["auto"][1][0]
+    busy_caches = (caches[0].clone(), caches[1].clone(), caches[2])
+    lm_busy_log(f"{cfg.name} requests", lambda i: decode_step(
+        params, cfg, tok, torch.full((b,), p_len + i, device=dev),
+        busy_caches), med)
+    log(f"{cfg.name} requests: B={b} prompt {p_len} (cache "
+        f"{caches[0].shape[2]} slots) | prefill {ms_pre:.3f} ms "
+        f"({b * p_len / ms_pre * 1e3:.1f} tokens/s) | {steps} | {agreed} | "
+        f"launches auto {n_steps * n_layers * 2}, ref 0 | {card}")
+    del runs, caches, busy_caches
+
+    if f32_check:
+        # the bf16 weights cast up (exact) stand in for the bf16 ones
+        # while the f32 path runs, then are cast back
+        params = compute_cast(params, torch.float32)
+        log(f"{cfg.name} f32: " + teacher_forced(
+            params, dataclasses.replace(cfg, dtype="float32"), prompt,
+            reset_counts, read_counts))
+        params = compute_cast(params, torch.bfloat16)
+        torch.cuda.empty_cache()
+
+    for shape, rows in ((LM_SHAPES["decode_32k"], b32),
+                        (LM_SHAPES["long_500k"], 1 if long_500k else None)):
+        if rows is None:
+            continue
+        # every slot of the cache (a ring under a window) drawn N(0, 1);
+        # each step rewrites slot (S - 1) % slots of every layer, then
+        # reads them all
+        s = shape.seq_len
+        t0 = time.perf_counter()
+        ck, cv, _ = init_cache(cfg, rows, s, device=dev)
+        for li in range(n_layers):
+            ck[li].normal_(generator=gen)
+            cv[li].normal_(generator=gen)
+        torch.cuda.synchronize()
+        t_fill = time.perf_counter() - t0
+        caches = (ck, cv, torch.full((rows,), min(s - 1, ck.shape[2]),
+                                     dtype=torch.int32, device=dev))
+        first = torch.from_numpy(lm_batch(1, rows, 1, cfg.vocab,
+                                          seed=SEED)[0]).to(dev)
+        logits = torch.zeros((rows, cfg.vocab), device=dev)
+        at_end = lambda i: torch.full((rows,), s - 1, device=dev)  # noqa
+        lm_decode(params, cfg, caches, logits, at_end, 2, "auto",
+                  [first] * 2)                                   # warm-up
+        runs, agreed = run_both(shape.name, caches, logits, at_end, [first])
+        steps, med = step_log(runs, rows)
+        tok = runs["auto"][1][-1]
+        lm_busy_log(f"{cfg.name} {shape.name}", lambda i: decode_step(
+            params, cfg, tok, at_end(i), caches), med)
+        log(f"{cfg.name} {shape.name}: B={rows} (cell {shape.global_batch}) "
+            f"at position {s - 1}, cache {ck.shape[2]} slots, "
+            f"{2 * ck.numel() * ck.element_size() / 1e9:.2f} GB (fill "
+            f"{t_fill:.2f} s) | {steps} | {agreed} | launches auto "
+            f"{n_steps * n_layers * 2}, ref 0 | {card}")
+        del ck, cv, caches, runs
+        torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{cfg.name}: peak device memory {peak:.2f} GiB | flash_decode "
+        f"launches {total} on the bf16 auto runs | took "
+        f"{time.perf_counter() - t_arch:.1f} s | {card}")
+    del params
+    return total
 
 
 def disk_index(dev, card, built, served, cfg, batch, disk_n,
@@ -1967,13 +2322,16 @@ def main(argv=None) -> int:
         f"cache_len ragged, 1, S, 0, > S; f32 and bf16): ok, max |err| "
         f"{errs['flash_decode']:.3g}")
     # one decode_32k layer at B = 8 (the main path's shape), the kernel
-    # bench's (bench_kernels.py) and one long_500k layer, bf16, every
-    # position valid; bytes: K and V once, q in, out f32; operations
-    # 4 B H S Dh
+    # bench's (bench_kernels.py), one long_500k layer, and phase 11's
+    # decode_32k layers of gemma-7b (B = 2, Dh = 256) and h2o-danube-3-4b
+    # (B = 128, G = 4, Dh = 120, its 4,096-slot ring), bf16, every position
+    # valid; bytes: K and V once, q in, out f32; operations 4 B H S Dh
     main_fd = (8, 16, 16, 128, 32768)
     fd_rows = {}
     for b, h, hkv, dh, s in (main_fd, (4, 32, 8, 128, 8192),
-                             (1, 16, 16, 128, 524288)):
+                             (1, 16, 16, 128, 524288),
+                             (2, 16, 16, 256, 32768),
+                             (128, 32, 8, 120, 4096)):
         q, k, v = fd_case(b, h, hkv, dh, s, bf16)
         n = torch.full((b,), s, dtype=torch.int32, device=dev)
         fd_out = fd_check(f"flash_decode B={b} H={h} Hkv={hkv} Dh={dh} S={s}",
@@ -2303,6 +2661,9 @@ def main(argv=None) -> int:
     # ---- 7. OLMo-1B decode serving ------------------------------------------
     lm_launches = lm_serving(dev, card, reset_counts, read_counts)
 
+    # ---- 11. gemma-7b, h2o-danube-3-4b, qwen2-moe-a2.7b, moonshot ----------
+    arch_launches = lm_archs(dev, card, reset_counts, read_counts)
+
     # ---- result lines -------------------------------------------------------
     meta = {
         "pq_adc": ("src/repro_torch/csrc/pq_adc.cu",
@@ -2339,6 +2700,8 @@ def main(argv=None) -> int:
         + json.dumps(fleet_launches))
     log("phase 10 launches (not in the kernels line's launches): "
         + json.dumps(fresh_launches))
+    log("phase 11 flash_decode launches, by arch (not in the kernels line's "
+        "launches): " + json.dumps(arch_launches))
     def on_card(t):
         if t is None:
             return None

@@ -1,5 +1,5 @@
 """Decoder-only LM: config, init, prefill + decode (port of
-`repro.models.transformer`, the dense single-device serving path).
+`repro.models.transformer`, the single-device serving path).
 
 Parameters are a dict with the reference's keys and stacked layout: each
 per-layer weight is (L, d_in, d_out), applied as `x @ w`, so a JAX
@@ -14,10 +14,13 @@ kernel only under a mesh with kv_mode="head"; on one card that is the
 same path with tp = 1), on CPU tensors the plain version.  `decode_step`
 writes the new token's K/V into the caches in place and returns them.
 
+MoE layers (`cfg.moe`) run `models.moe.moe_ffn` on one device; serving
+drops its aux loss, as the reference's serve path does.
+
 Sharded serving (`ShardCtx`, `lm_param_specs`, `cache_specs`,
-`_decode_seqsharded`: kv_mode "seq" / "seq_all"), training
-(`forward_hidden`, `lm_loss`, `_layer_scan`, remat) and MoE layers wait
-for later slices (ROADMAP Queue 1).
+`_decode_seqsharded`: kv_mode "seq" / "seq_all") and training
+(`forward_hidden`, `lm_loss`, `_layer_scan`, remat) wait for later slices
+(ROADMAP Queue 1 items 7.3, 7.4).
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from ..core.distances import f32_matmul
 from .attention import causal_attention, decode_attention_local
 from .layers import (act_fn, apply_norm, apply_rope, dense_init, embed_init,
                      norm_param)
+from .moe import MoEConfig, moe_ffn
 
 # ---------------------------------------------------------------------------
 # Config
@@ -49,7 +53,7 @@ class LMConfig:
     activation: str = "silu"         # silu (SwiGLU) | gelu_tanh (GeGLU)
     sliding_window: Optional[int] = None
     rope_theta: float = 10000.0
-    moe: Optional[Any] = None        # MoE layers are not ported yet
+    moe: Optional[MoEConfig] = None
     tie_embeddings: bool = False
     embed_scale: bool = False        # gemma: x *= sqrt(d_model)
     dtype: str = "bfloat16"
@@ -71,59 +75,87 @@ class LMConfig:
         return self.n_kv_heads * self.d_head
 
     def n_params(self) -> int:
-        """Total parameter count of a dense config."""
-        _dense_only(self)
+        """Total parameter count (dense equivalent; MoE counts all experts)."""
+        return self._count(self.moe.n_experts if self.moe else 0)
+
+    def n_active_params(self) -> int:
+        """Params touched per token (MoE: top-k + shared only)."""
+        return self._count(self.moe.top_k if self.moe else 0)
+
+    def _count(self, experts: int) -> int:
+        """Parameters with `experts` routed experts a layer (MoE)."""
         d, v, l = self.d_model, self.vocab, self.n_layers
         attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        if self.moe:
+            m = self.moe
+            ffn = (d * m.n_experts  # router
+                   + experts * 3 * d * m.d_ff_expert
+                   + (3 * d * m.d_ff_shared if m.n_shared else 0))
+        else:
+            ffn = 3 * d * self.d_ff
         emb = v * d * (1 if self.tie_embeddings else 2)
-        return l * (attn + 3 * d * self.d_ff) + emb
-
-
-def _dense_only(cfg: LMConfig) -> None:
-    if cfg.moe:
-        raise NotImplementedError(f"{cfg.name}: MoE layers are not ported "
-                                  f"yet (ROADMAP Queue 1 item 6)")
+        return l * (attn + ffn) + emb
 
 
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
 def init_lm_params(cfg: LMConfig, generator: torch.Generator,
-                   device=None) -> dict:
-    """Float32 parameters with the reference's initialisation (weights
-    N(0, 1/d_in), embedding N(0, 0.02^2), norms at their neutral values),
-    drawn from `generator` (torch's numbers, not jax.random's) on its
-    device, then moved to `device` (None means the CUDA device)."""
-    _dense_only(cfg)
+                   device=None, dtype: torch.dtype = torch.float32) -> dict:
+    """Parameters with the reference's initialisation and layout (weights
+    N(0, 1/d_in), embedding N(0, 0.02^2), norms at their neutral values;
+    MoE: router (L, d, E), experts (L, E_pad, d_in, d_out), the fused
+    shared expert), drawn from `generator` (torch's numbers, not
+    jax.random's) on its device and stored in `dtype` on `device` (None
+    means the CUDA device).  Each matrix is drawn in f32 and stored before
+    the next is drawn, so a bf16 model never holds its f32 copy."""
     dev = resolve_device(device)
     d, l = cfg.d_model, cfg.n_layers
 
-    def stack(d_in, d_out):
-        return torch.stack([dense_init(generator, d_in, d_out, dev)
-                            for _ in range(l)])
+    def stack(d_in, d_out, experts=None):
+        """(L, [E,] d_in, d_out) in `dtype`, one matrix drawn at a time."""
+        lead = (l,) if experts is None else (l, experts)
+        out = torch.empty(lead + (d_in, d_out), dtype=dtype, device=dev)
+        for w in out.view(-1, d_in, d_out):
+            w.copy_(dense_init(generator, d_in, d_out, dev))
+        return out
 
     layers: dict[str, Any] = {
-        "attn_norm": _stack_norm(cfg, l, dev),
-        "mlp_norm": _stack_norm(cfg, l, dev),
+        "attn_norm": _stack_norm(cfg, l, dev, dtype),
+        "mlp_norm": _stack_norm(cfg, l, dev, dtype),
         "wq": stack(d, cfg.q_dim),
         "wk": stack(d, cfg.kv_dim),
         "wv": stack(d, cfg.kv_dim),
         "wo": stack(cfg.q_dim, d),
-        "w_gate": stack(d, cfg.d_ff),
-        "w_in": stack(d, cfg.d_ff),
-        "w_out": stack(cfg.d_ff, d),
     }
-    params = {"embed": embed_init(generator, cfg.vocab, d, dev),
-              "final_norm": norm_param(cfg.norm, d, dev),
+    if cfg.moe:
+        m = cfg.moe
+        e = m.n_experts_padded
+        layers["router"] = stack(d, m.n_experts)
+        layers["we_gate"] = stack(d, m.d_ff_expert, e)
+        layers["we_in"] = stack(d, m.d_ff_expert, e)
+        layers["we_out"] = stack(m.d_ff_expert, d, e)
+        if m.n_shared:
+            layers["ws_gate"] = stack(d, m.d_ff_shared)
+            layers["ws_in"] = stack(d, m.d_ff_shared)
+            layers["ws_out"] = stack(m.d_ff_shared, d)
+    else:
+        layers["w_gate"] = stack(d, cfg.d_ff)
+        layers["w_in"] = stack(d, cfg.d_ff)
+        layers["w_out"] = stack(cfg.d_ff, d)
+    final_norm = norm_param(cfg.norm, d, dev)
+    params = {"embed": embed_init(generator, cfg.vocab, d, dev).to(dtype),
+              "final_norm": None if final_norm is None
+              else final_norm.to(dtype),
               "layers": layers}
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(generator, d, cfg.vocab, dev)
+        params["lm_head"] = dense_init(generator, d, cfg.vocab, dev, dtype)
     return params
 
 
-def _stack_norm(cfg: LMConfig, l: int, device):
+def _stack_norm(cfg: LMConfig, l: int, device, dtype):
     p = norm_param(cfg.norm, cfg.d_model, device)
-    return None if p is None else torch.stack([p] * l)
+    return None if p is None else torch.stack([p] * l).to(dtype)
 
 
 def params_from_jax(tree: dict, cfg: LMConfig, device=None,
@@ -132,7 +164,6 @@ def params_from_jax(tree: dict, cfg: LMConfig, device=None,
     (numpy arrays, or anything `numpy.asarray` reads) on `device` (None
     means the CUDA device), cast to `dtype` where given; no transposes.
     Norm scales are None under nonparam_ln, as in the reference."""
-    _dense_only(cfg)
     dev = resolve_device(device)
 
     def conv(a):
@@ -184,8 +215,11 @@ def _attn_qkv(x, lp, cfg: LMConfig, positions):
 
 
 def _ffn(x, lp, cfg: LMConfig):
-    """The dense gated MLP of one layer (MoE layers are not ported)."""
+    """One layer's FFN: the dense gated MLP, or the MoE block (its aux
+    loss dropped: serving only)."""
     h = apply_norm(cfg.norm, x, lp["mlp_norm"])
+    if cfg.moe:
+        return moe_ffn(h, lp, cfg.moe, activation=cfg.activation)[0]
     g = h @ lp["w_gate"].to(h.dtype)
     i = h @ lp["w_in"].to(h.dtype)
     return (act_fn(cfg.activation)(g) * i) @ lp["w_out"].to(h.dtype)
@@ -285,7 +319,7 @@ def decode_step(params, cfg: LMConfig, tokens, positions, caches,
     if kv_mode in ("seq", "seq_all"):
         raise NotImplementedError(
             f"kv_mode={kv_mode!r} (a sequence-sharded cache) waits for the "
-            f"serving-fleet slice (ROADMAP Queue 1 item 3)")
+            f"sharded slice (ROADMAP Queue 1 item 7.3)")
     if kv_mode not in ("local", "head"):
         raise ValueError(kv_mode)
     ck_all, cv_all, _ = caches

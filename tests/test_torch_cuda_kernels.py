@@ -398,7 +398,10 @@ def test_engine_backends_agree_on_card(dev):
     # G = 1, 4 and 8 at Dh = 128 in bf16
     (3, 4, 4, 128, 2000, "bf16", "random"),
     (3, 16, 4, 128, 2000, "bf16", "random"),
-    (3, 32, 4, 128, 2000, "bf16", "random")])
+    (3, 32, 4, 128, 2000, "bf16", "random"),
+    # decode_32k layers of gemma-7b and h2o-danube-3-4b (its ring)
+    (2, 16, 16, 256, 32768, "bf16", "full"),
+    (128, 32, 8, 120, 4096, "bf16", "random")])
 def test_flash_decode_kernel_matches_plain(dev, b, h, hkv, dh, s, dtype,
                                            lens):
     """Within atol 1e-5: G = 1 to 32, Dh = 16 to 256, ragged S, f32 and

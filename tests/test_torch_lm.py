@@ -16,17 +16,22 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import gemma_7b as jax_gemma_7b
+from repro.configs import h2o_danube3_4b as jax_h2o_danube3_4b
+from repro.configs import moonshot_v1_16b_a3b as jax_moonshot_v1_16b_a3b
 from repro.configs import olmo_1b as jax_olmo_1b
+from repro.configs import qwen2_moe_a2_7b as jax_qwen2_moe_a2_7b
 from repro.data.synthetic import lm_batch as jax_lm_batch
 from repro.models import layers as jlayers
 from repro.models import transformer as jtf
 from repro.models.attention import causal_attention as jax_causal_attention
-from repro_torch.configs import olmo_1b
+from repro_torch.configs import olmo_1b, qwen2_moe_a2_7b
 from repro_torch.configs.base import LM_SHAPES
 from repro_torch.data.synthetic import lm_batch
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.models import layers
 from repro_torch.models.attention import causal_attention
+from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import (LMConfig, decode_step,
                                             init_cache, init_lm_params,
                                             params_from_jax, serve_prefill)
@@ -46,11 +51,16 @@ def _jcfg(**kw):
 
 
 def _port_cfg(jcfg):
-    return LMConfig(**dataclasses.asdict(jcfg))
+    kw = dataclasses.asdict(jcfg)
+    if kw["moe"] is not None:
+        kw["moe"] = MoEConfig(**kw["moe"])
+    return LMConfig(**kw)
 
 
-CONFIGS = {"test_lm": _jcfg(), "olmo_1b_reduced":
-           jax_olmo_1b.model_config(reduced=True)}
+CONFIGS = {"test_lm": _jcfg()} | {
+    f"{m.ARCH_ID}_reduced": m.model_config(reduced=True)
+    for m in (jax_olmo_1b, jax_gemma_7b, jax_h2o_danube3_4b,
+              jax_qwen2_moe_a2_7b, jax_moonshot_v1_16b_a3b)}
 
 
 @pytest.fixture(scope="module", params=sorted(CONFIGS))
@@ -244,6 +254,64 @@ def test_swa_ring_caches_match_reference():
     np.testing.assert_array_equal(len2.numpy(), np.asarray(jlen2))
 
 
+def _rope_frequencies_eager(dh, theta=10000.0, _jax=jlayers.rope_frequencies):
+    """The reference's RoPE frequencies, evaluated op by op.  Traced into
+    the decode scan, XLA's CPU `pow` misses three of reduced Danube's
+    eight by one f32 ulp, and at position 524,287 one ulp turns an angle
+    by up to 0.03 rad; evaluated alone they equal the port's bitwise."""
+    with jax.ensure_compile_time_eval():
+        return _jax(dh, theta)
+
+
+def test_rope_at_long_500k_position_is_exact():
+    x = RNG.normal(size=(2, 1, 8, 16)).astype(np.float32)
+    pos = np.full((2, 1), LM_SHAPES["long_500k"].seq_len - 1, np.int32)
+    got = layers.apply_rope(torch.from_numpy(x), torch.from_numpy(pos))
+    ang = (pos[..., None].astype(np.float32)
+           * layers.rope_frequencies(16).numpy()).astype(np.float64)
+    cos, sin = np.cos(ang)[..., None, :], np.sin(ang)[..., None, :]
+    x1, x2 = np.split(x.astype(np.float64), 2, axis=-1)
+    want = np.concatenate([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(layers.rope_frequencies(16).numpy(),
+                                  np.asarray(_rope_frequencies_eager(16)))
+
+
+def test_danube_decode_at_long_500k_position_matches_reference(monkeypatch):
+    """Reduced h2o-danube-3-4b decodes at position 524,287 (long_500k's
+    last) through its 64-slot ring cache, as the reference does: the
+    write lands in slot 524,287 % 64 and every slot is read.  The
+    reference's RoPE frequencies are evaluated op by op
+    (`_rope_frequencies_eager`)."""
+    monkeypatch.setattr(jlayers, "rope_frequencies", _rope_frequencies_eager)
+    jcfg = jax_h2o_danube3_4b.model_config(reduced=True)
+    cfg = _port_cfg(jcfg)
+    jp = jtf.init_lm_params(jcfg, jax.random.PRNGKey(5))
+    params = params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    b, pos = 2, LM_SHAPES["long_500k"].seq_len - 1
+    shape = (cfg.n_layers, b, cfg.sliding_window, cfg.n_kv_heads,
+             cfg.d_head)
+    ck, cv = (RNG.normal(size=shape).astype(np.float32) for _ in range(2))
+    lens = np.full(b, cfg.sliding_window, np.int32)
+    tok = RNG.integers(0, cfg.vocab, (b, 1)).astype(np.int32)
+    positions = np.full(b, pos, np.int32)
+    jl, (jk, jv, jlen) = jtf.decode_step(
+        jp, jcfg, jnp.asarray(tok), jnp.asarray(positions),
+        (jnp.asarray(ck), jnp.asarray(cv), jnp.asarray(lens)), CTX, "local")
+    caches = (torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy()),
+              torch.from_numpy(lens))
+    logits, (k2, v2, len2) = decode_step(params, cfg, tok, positions, caches,
+                                         kv_mode="local")
+    _close(logits, jl)
+    _close(k2, jk)
+    _close(v2, jv)
+    np.testing.assert_array_equal(len2.numpy(), np.asarray(jlen))
+    slot = pos % cfg.sliding_window
+    assert not np.allclose(k2[:, :, slot].numpy(), ck[:, :, slot])
+    np.testing.assert_array_equal(np.delete(k2.numpy(), slot, axis=2),
+                                  np.delete(ck, slot, axis=2))
+
+
 @pytest.mark.parametrize("step,batch,seq_len,vocab,seed", [
     (0, 8, 1024, 50304, 0), (3, 2, 17, 128, 5)])
 def test_lm_batch_is_bitwise_equal(step, batch, seq_len, vocab, seed):
@@ -295,12 +363,18 @@ def test_unported_modes_raise():
     prompt = torch.zeros((1, 4), dtype=torch.int32)
     _, caches = _prefill_into_cache(cfg, params, prompt, 8)
     for mode in ("seq", "seq_all"):
-        with pytest.raises(NotImplementedError, match="serving-fleet"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP .* 7\.3"):
             decode_step(params, cfg, prompt[:, :1], torch.tensor([4]), caches,
                         kv_mode=mode)
     out = decode_step(params, cfg, prompt[:, :1], torch.tensor([4]), caches,
                       kv_mode="head")
     assert out[0].shape == (1, cfg.vocab)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        init_lm_params(dataclasses.replace(cfg, moe=object()),
-                       torch.Generator(), device="cpu")
+    # MoE layers are ported: a reduced MoE config initialises and decodes
+    moe_cfg = qwen2_moe_a2_7b.model_config(reduced=True)
+    moe_params = init_lm_params(moe_cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+    _, caches = _prefill_into_cache(moe_cfg, moe_params, prompt, 8)
+    logits, _ = decode_step(moe_params, moe_cfg, prompt[:, :1],
+                            torch.tensor([4]), caches)
+    assert logits.shape == (1, moe_cfg.vocab)
+    assert bool(torch.isfinite(logits).all())

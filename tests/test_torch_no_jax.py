@@ -61,7 +61,12 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.serve.frontend", "repro_torch.serve.deploy",
             "repro_torch.index.delta.layer", "repro_torch.index.delta.engine",
             "repro_torch.index.delta.consolidate",
-            "repro_torch.index.delta.service"} <= set(mods)
+            "repro_torch.index.delta.service", "repro_torch.models.moe",
+            "repro_torch.configs.gemma_7b",
+            "repro_torch.configs.h2o_danube3_4b",
+            "repro_torch.configs.qwen2_moe_a2_7b",
+            "repro_torch.configs.moonshot_v1_16b_a3b",
+            "repro_torch.configs.registry"} <= set(mods)
     code = "\n".join([
         "import importlib, sys, runpy",
         "for name in ('jax', 'jaxlib', 'repro'):",
