@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's batched BAMG query and construction paths,
 its disk-resident index, its serving fleet, deployment and freshness, DIN
-serving and LM serving (OLMo-1B, Gemma-7B, H2O-Danube3-4B,
-Qwen1.5-MoE-A2.7B, Moonlight-16B-A3B) on one NVIDIA GPU.
+serving, LM serving (OLMo-1B, Gemma-7B, H2O-Danube3-4B,
+Qwen1.5-MoE-A2.7B, Moonlight-16B-A3B) and training (OLMo-1B,
+Qwen1.5-MoE-A2.7B, DIN) on one NVIDIA GPU.
 
 Run from the root of a checkout, with one card:
 
@@ -10,7 +11,8 @@ Run from the root of a checkout, with one card:
     python3 chip_smoke.py --n 100000 --build-n 20000 --disk-n 5000  # quicker
 
 Phases, in the order they run (9 runs right after 4, on its corpus; 8
-right after 5, on its BAMG; 10 right after 8, on its index; 11 last);
+right after 5, on its BAMG; 10 right after 8, on its index; 11, then 12
+last);
 any failed
 check raises and the script exits nonzero:
 
@@ -166,7 +168,27 @@ check raises and the script exits nonzero:
    and auto's experts, keeps every row: its router logits and then its
    logits are held to the same rule on all of them.  Each arch logs
    prefill ms and tokens/s, the step's median, min and max and tokens/s,
-   the card's busy share, the peak memory and the launches.
+   the card's busy share, the peak memory and the launches;
+12. training, last, through `train.ft.run_loop` / `run_with_recovery`,
+   `train.trainer.make_train_step` and `train.checkpoint` (f32 masters,
+   AdamW after 2 warmup steps, lr 1e-4 for the LMs and 1e-3 for DIN):
+   OLMo-1B train_4k at its full
+   config (bf16 compute, remat "full", 64 loss chunks) at B = 8 x 4,096
+   (the cell's 256 cut to 8) in TRAIN_ACCUM 2 micro-batches, 8 steps with
+   an async checkpoint every 4 -- losses finite and falling, the step
+   median, tokens/s, model FLOP share of the bf16 peak, busy share over
+   one profiled step, peak memory -- and its last checkpoint restored
+   bitwise onto the card; that checkpoint cast to bf16 and served: 4 x
+   512-token prefill, 8 greedy steps under "auto" (flash_decode, 256
+   launches) and "ref", held to phase 7's rule; restart equivalence at
+   OLMo's width with 2 layers, B = 2 x 1,024, 6 steps uninterrupted
+   against `run_with_recovery` failing after step 3 (bitwise, or within
+   rtol 1e-6 where the run is not deterministic); the f32 gradients at
+   that width and B = 2 x 512 equal with the caller's TF32 on and off;
+   Qwen1.5-MoE-A2.7B at full width with 2 of its 24 layers, B = 4 x
+   1,024, 4 steps (loss, ce and aux); DIN train_batch at its full config
+   (B = 65,536), 8 steps; then `python -m repro_torch.launch.serve` (N =
+   4,000) on the card.  Training itself launches no hand-written kernel.
 
 The last lines are the script's time, the card's nvidia-smi line, one JSON
 object with every kernel's numbers, and `{"ok": true, "device": {...}}`.
@@ -180,6 +202,7 @@ import argparse
 import contextlib
 import copy
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1732,6 +1755,436 @@ def deploy_fresh(dev, card, index, ds, cfg, batch, disk_n, n_insert,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Training (phase 12)
+# ---------------------------------------------------------------------------
+# OLMo-1B's model FLOPs a token (forward and backward, remat's recompute
+# not counted): 6 x the parameters of its products (all but the input
+# embedding, a gather) + 6 x L x S x d of causal attention
+BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 dense, data sheet
+
+
+def _timed(step_fn, times, profile_at=None, busy=None):
+    """step_fn between two syncs of the card, its host ms appended to
+    `times`; the call numbered `profile_at` (0-based) runs under the
+    profiler instead, its CUDA time stored in busy["ms"], its kernel runs
+    in busy["runs"] and its wall in busy["wall"] (not in `times`)."""
+    import torch
+
+    calls = [0]
+
+    def run(state, batch):
+        i = calls[0]
+        calls[0] += 1
+        prof = (torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+            if i == profile_at else contextlib.nullcontext())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with prof:
+            out = step_fn(state, batch)
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if i == profile_at:
+            avgs = prof.key_averages()
+            busy["ms"] = sum(a.self_device_time_total for a in avgs) / 1e3
+            busy["runs"] = sum(a.count for a in avgs)
+            busy["wall"] = ms
+        else:
+            times.append(ms)
+        return out
+    return run
+
+
+def _finite_falling(name, losses):
+    """Every loss finite and the last below the first."""
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{name}: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: the loss did not fall: {losses}")
+
+
+def _lm_setup(dev, cfg, b, s, n_steps):
+    """(seeded generator on dev, batch_fn, loss_fn, AdamW config) for
+    `lm_batch` batches of b x s tokens and n_steps steps."""
+    import torch
+
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models.transformer import lm_loss
+    from repro_torch.train.optimizer import AdamWConfig
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+
+    def batch_fn(step):
+        t, l = lm_batch(step, b, s, cfg.vocab, seed=SEED)
+        return {"tokens": torch.from_numpy(t).to(dev),
+                "labels": torch.from_numpy(l).to(dev)}
+
+    def loss_fn(params, batch):
+        return lm_loss(params, cfg, batch["tokens"], batch["labels"])
+
+    # lr 1e-4: Adam's first steps move every weight by about lr, and at
+    # 1e-3 OLMo's loss rose from 11.3 to 19.8 after one step (PERF §6)
+    return gen, batch_fn, loss_fn, AdamWConfig(lr=1e-4, warmup_steps=2,
+                                               total_steps=n_steps)
+
+
+def _train_olmo(dev, card, ckpt_dir, reset_counts, no_launches):
+    """Phase 12.1: OLMo-1B train_4k at full width and depth, B = 8 x 4,096
+    (the cell's 256 cut to 8) in TRAIN_ACCUM 2 micro-batches of 4 x 4,096,
+    f32 masters, bf16 compute, remat "full", 64 loss chunks; 8 steps
+    through run_loop with an async checkpoint every 4.  Returns the
+    parameters of the last checkpoint, restored onto the card (held
+    bitwise to the live state)."""
+    import torch
+
+    from repro_torch.configs import olmo_1b
+    from repro_torch.models.transformer import init_lm_params
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.ft import FTConfig, run_loop
+    from repro_torch.train.trainer import init_train_state, make_train_step
+    from repro_torch.utils.tree import flatten_with_path, leaves
+
+    cfg = olmo_1b.model_config()
+    b, s, n = 8, 4096, 8
+    torch.cuda.reset_peak_memory_stats()
+    gen, batch_fn, loss_fn, opt = _lm_setup(dev, cfg, b, s, n)
+    state, ms_init = synced(lambda: init_train_state(
+        init_lm_params(cfg, gen, device=dev), opt))
+    times, busy = [], {}
+    step = _timed(make_train_step(loss_fn, opt, accum=olmo_1b.TRAIN_ACCUM),
+                  times, profile_at=n - 2, busy=busy)
+    reset_counts()
+    t0 = time.perf_counter()
+    state, logged = run_loop(state, step, batch_fn, n,
+                             FTConfig(ckpt_dir=str(ckpt_dir), ckpt_every=4,
+                                      keep=1), log_every=1)
+    t_loop = time.perf_counter() - t0
+    no_launches("olmo-1b train_4k")
+    losses = [m["loss"] for _, m in logged]
+    _finite_falling("olmo-1b train_4k", losses)
+    med = statistics.median(times)
+    tokens = b * s
+    n_mm = cfg.n_params() - cfg.vocab * cfg.d_model
+    flop = (6 * n_mm + 6 * cfg.n_layers * s * cfg.d_model) * tokens
+    log(f"train olmo-1b train_4k: B={b} x S={s} (accum "
+        f"{olmo_1b.TRAIN_ACCUM}), {cfg.n_params()} parameters, f32 masters, "
+        f"bf16 compute, remat {cfg.remat}, {cfg.loss_chunks} loss chunks | "
+        f"init {ms_init:.1f} ms | losses "
+        + ", ".join(f"{v:.4f}" for v in losses)
+        + f" | step median {med:.1f} ms (min {min(times):.1f}, max "
+        f"{max(times):.1f}; {len(times)} unprofiled steps) | "
+        f"{tokens / med * 1e3:.1f} tokens/s | model FLOPs {flop:.4e} a step "
+        f"(6 x {n_mm} x tokens + 6 x L x S x d x tokens) = "
+        f"{flop / (med * 1e-3) / 1e12:.1f} TFLOP/s, "
+        f"{flop / (med * 1e-3) / BF16_FLOP_PER_S:.2%} of 989 TFLOP/s bf16 | "
+        f"card busy {busy['ms']:.1f} ms over profiled step {n - 1} "
+        f"({busy['runs']} kernel runs; wall {busy['wall']:.1f} ms) = "
+        f"{busy['ms'] / med:.2%} of the unprofiled median | loop "
+        f"{t_loop:.1f} s, of it outside the steps (checkpoints at 4 and 8: "
+        f"host copies, the last write) "
+        f"{t_loop - (sum(times) + busy['wall']) / 1e3:.1f} s | peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB | {card}")
+    t0 = time.perf_counter()
+    restored, at = ckpt.restore(str(ckpt_dir), state)
+    t_restore = time.perf_counter() - t0
+    if at != n:
+        raise AssertionError(f"latest checkpoint is step {at}, not {n}")
+    for (k, a), c in zip(flatten_with_path(state), leaves(restored)):
+        if not torch.equal(a, c):
+            raise AssertionError(f"restored {k} differs from the live state")
+    gb = sum(x.numel() * x.element_size() for x in leaves(restored)) / 1e9
+    log(f"  checkpoint: step {at} ({gb:.2f} GB) restored onto the card in "
+        f"{t_restore:.1f} s, bitwise the live state")
+    return cfg, restored["params"], at
+
+
+def _serve_trained(dev, card, cfg, params32, at, reset_counts, read_counts):
+    """Phase 12.3: the trained parameters cast to bf16, 4 prompts of 512
+    tokens prefilled, 8 greedy steps under auto (flash_decode) and ref
+    (fed auto's tokens), held to phase 7's rule.  Returns auto's
+    launches."""
+    import torch
+
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models.transformer import compute_cast
+
+    params = compute_cast(params32, torch.bfloat16)
+    pb, p_len, n_new = 4, 512, 8
+    prompt = torch.from_numpy(lm_batch(10_000, pb, p_len, cfg.vocab,
+                                       seed=SEED)[0]).to(dev)
+    logits0, (ck0, cv0, lens), ms_pre = prefill_cache(params, cfg, prompt,
+                                                      n_new)
+    runs, dec = {}, {}
+    for backend in ("auto", "ref"):
+        caches = (ck0.clone(), cv0.clone(), lens)
+        reset_counts()
+        runs[backend] = lm_decode(params, cfg, caches, logits0,
+                                  lambda i: torch.full((pb,), p_len + i,
+                                                       device=dev),
+                                  n_new, backend,
+                                  () if backend == "auto" else runs["auto"][1])
+        dec[backend] = read_counts()
+    expect_launches(dec["auto"], 2 * cfg.n_layers * n_new)
+    expect_launches(dec["ref"], 0)
+    agreed = lm_agree("trained requests", runs["auto"][0], runs["ref"][0])
+    log(f"train -> serve: the step-{at} checkpoint in bf16, B={pb} x "
+        f"{p_len} prefill {ms_pre:.1f} ms, {n_new} steps auto median "
+        f"{statistics.median(runs['auto'][2]):.3f} ms, ref "
+        f"{statistics.median(runs['ref'][2]):.3f} ms | {agreed} | "
+        f"flash_decode launches auto {dec['auto']['flash_decode']}, ref 0 "
+        f"| {card}")
+    return dec["auto"]
+
+
+def _restart(dev, card, cfg, root, reset_counts, no_launches):
+    """Phase 12.2: restart equivalence at OLMo's width with 2 layers, B =
+    2 x 1,024: 6 steps uninterrupted (no checkpoint) against
+    run_with_recovery failing after step 3 (checkpoints every 2: it
+    resumes from step 2); bitwise, else within rtol 1e-6."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.transformer import init_lm_params
+    from repro_torch.train.ft import FTConfig, run_with_recovery
+    from repro_torch.train.trainer import init_train_state, make_train_step
+    from repro_torch.utils.tree import flatten_with_path, leaves
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    n2 = 6
+    _, batch_fn, loss_fn, opt = _lm_setup(dev, cfg2, 2, 1024, n2)
+
+    def init_fn():
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED)
+        return init_train_state(init_lm_params(cfg2, g, device=dev), opt)
+
+    step = make_train_step(loss_fn, opt)
+    reset_counts()
+    t0 = time.perf_counter()
+    s_a, _ = _train_steps(step, init_fn(), [batch_fn(i) for i in range(n2)])
+    s_b, _, attempts = run_with_recovery(
+        init_fn, step, batch_fn, n2,
+        FTConfig(ckpt_dir=str(root / "b"), ckpt_every=2, keep=1), fail_at=3)
+    t_restart = time.perf_counter() - t0
+    no_launches("restart")
+    if attempts != 1:
+        raise AssertionError(f"restart: {attempts} restarts, expected 1")
+    pairs = list(zip(flatten_with_path(s_a), leaves(s_b)))
+    differ = [k for (k, a), c in pairs if not torch.equal(a, c)]
+    for (k, a), c in pairs:
+        torch.testing.assert_close(c, a, rtol=1e-6, atol=0.0,
+                                   msg=lambda m: f"restart {k}: {m}")
+    log(f"restart: {cfg2.n_layers} layers at OLMo's width, B=2 x 1024, "
+        f"{n2} steps uninterrupted vs failed after step 3 and resumed from "
+        f"step 2 ({attempts} restart): final states "
+        + ("bitwise equal" if not differ else
+           f"within rtol 1e-6, not bitwise ({len(differ)} of {len(pairs)} "
+           f"leaves differ: {differ[:4]})")
+        + f" | both runs {t_restart:.1f} s with checkpoints | {card}")
+
+
+def _tf32(dev, card, cfg, reset_counts, no_launches):
+    """Phase 12.4: the f32 loss and gradients at OLMo's width, 2 layers,
+    B = 2 x 512, with the caller's TF32 off, on, off: equal bitwise
+    wherever the two off runs are; the caller's setting restored."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models.transformer import init_lm_params, lm_loss
+    from repro_torch.train.trainer import loss_and_grads
+    from repro_torch.utils.tree import flatten_with_path
+
+    cfg4 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = init_lm_params(cfg4, gen, device=dev)
+    t, l = (torch.from_numpy(a).to(dev)
+            for a in lm_batch(0, 2, 512, cfg4.vocab, seed=SEED))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    runs = {}
+    reset_counts()
+    try:
+        for name, tf32 in (("off", False), ("on", True), ("off again", False)):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            loss, _, g = loss_and_grads(
+                lambda p, bt: lm_loss(p, cfg4, *bt), params, (t, l))
+            runs[name] = (loss, dict(flatten_with_path(g)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    no_launches("tf32")
+    (l_off, off), (l_on, on), (_, again) = (runs[k] for k in
+                                            ("off", "on", "off again"))
+    steady = [k for k in off if torch.equal(off[k], again[k])]
+    if not torch.equal(l_on, l_off):
+        raise AssertionError("TF32: the f32 loss moved with allow_tf32")
+    for k in steady:
+        if not torch.equal(on[k], off[k]):
+            raise AssertionError(f"TF32: gradient {k} moved with allow_tf32")
+    for k in set(off) - set(steady):
+        torch.testing.assert_close(on[k], off[k], rtol=1e-5,
+                                   atol=1e-6 * float(off[k].abs().max()))
+    log(f"tf32: f32 loss {float(l_off):.6f} and gradients with allow_tf32 "
+        f"on equal to off: {len(steady)} of {len(off)} leaves bitwise "
+        f"(deterministic across two off runs); "
+        + (f"{sorted(set(off) - set(steady))} differ between the two off "
+           f"runs and are held within rtol 1e-5" if len(steady) < len(off)
+           else "every leaf deterministic")
+        + " | the caller's setting restored: allow_tf32 "
+        f"{torch.backends.cuda.matmul.allow_tf32} | {card}")
+
+
+def _train_steps(step, state, batches):
+    """Run step over `batches`; returns (state, [(step, metrics as
+    floats)])."""
+    logged = []
+    for i, b in enumerate(batches):
+        state, m = step(state, b)
+        logged.append((i + 1, {k: float(v) for k, v in m.items()}))
+    return state, logged
+
+
+def _train_qwen(dev, card, reset_counts, no_launches):
+    """Phase 12.5: Qwen1.5-MoE-A2.7B at full width with 2 of its 24 layers
+    (the full model's state is 229 GB), B = 4 x 1,024 in TRAIN_ACCUM 2
+    micro-batches, 4 steps, no checkpoint."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import qwen2_moe_a2_7b
+    from repro_torch.models.transformer import init_lm_params
+    from repro_torch.train.trainer import init_train_state, make_train_step
+
+    full = qwen2_moe_a2_7b.model_config()
+    cfg = dataclasses.replace(full, n_layers=2)
+    n, b, s = 4, 4, 1024
+    torch.cuda.reset_peak_memory_stats()
+    gen, batch_fn, loss_fn, opt = _lm_setup(dev, cfg, b, s, n)
+    state, ms_init = synced(lambda: init_train_state(
+        init_lm_params(cfg, gen, device=dev), opt))
+    times = []
+    step = _timed(make_train_step(loss_fn, opt,
+                                  accum=qwen2_moe_a2_7b.TRAIN_ACCUM), times)
+    batches = [batch_fn(i) for i in range(n)]
+    reset_counts()
+    _, logged = _train_steps(step, state, batches)
+    no_launches("qwen2-moe-a2.7b train")
+    _finite_falling("qwen2-moe-a2.7b train", [m["loss"] for _, m in logged])
+    med = statistics.median(times)
+    log(f"train qwen2-moe-a2.7b: {cfg.n_layers} of {full.n_layers} layers "
+        f"at full width ({cfg.n_params()} parameters), B={b} x {s} (accum "
+        f"{qwen2_moe_a2_7b.TRAIN_ACCUM}) | init {ms_init:.1f} ms | "
+        + " | ".join(f"step {i}: loss {m['loss']:.4f} ce {m['ce']:.4f} aux "
+                     f"{m['aux']:.5f}" for i, m in logged)
+        + f" | step median {med:.1f} ms ("
+        + ", ".join(f"{v:.1f}" for v in times)
+        + f") | {b * s / med * 1e3:.1f} tokens/s | peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB | {card}")
+
+
+def _train_din(dev, card, reset_counts, no_launches):
+    """Phase 12.6: DIN train_batch at its full config, B = 65,536, 8
+    steps (lr 1e-3)."""
+    import torch
+
+    from repro_torch.configs import din_cfg
+    from repro_torch.data.synthetic import din_batch
+    from repro_torch.models.recsys import din
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import init_train_state, make_train_step
+
+    cfg = din_cfg.model_config()
+    n, b = 8, 65_536
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    model = din.init_params(cfg, gen, device=dev, trainable=True)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=n)
+    times = []
+    step = _timed(make_train_step(
+        lambda p, bt: (din.loss_fn(p, cfg, bt), {}), opt), times)
+    keys = ("hist_items", "hist_cates", "hist_len", "target_item",
+            "target_cate", "label")
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in zip(
+        keys, din_batch(i, b, cfg.seq_len, cfg.n_items, cfg.n_cates,
+                        seed=SEED))} for i in range(n)]
+    reset_counts()
+    _, logged = _train_steps(step, init_train_state(model.param_tree(), opt),
+                             batches)
+    no_launches("din train_batch")
+    losses = [m["loss"] for _, m in logged]
+    _finite_falling("din train_batch", losses)
+    med = statistics.median(times)
+    log(f"train din train_batch: B={b}, full config | losses "
+        + ", ".join(f"{v:.5f}" for v in losses)
+        + f" | step median {med:.2f} ms (min {min(times):.2f}, max "
+        f"{max(times):.2f}) | {b / med * 1e3:.1f} rows/s | peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB | {card}")
+
+
+def training(dev, card, reset_counts, read_counts) -> dict:
+    """Phase 12: training on the card through `train.ft.run_loop` /
+    `run_with_recovery`, `train.trainer.make_train_step` and
+    `train.checkpoint`, the trained OLMo-1B served by decode, then the
+    paper's serve CLI.  Returns the launches of the kernels this phase
+    ran, by part; each part's tensors are freed before the next."""
+    import shutil
+
+    import torch
+
+    from repro_torch.launch import serve as serve_launch
+
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke" / "train"
+    shutil.rmtree(root, ignore_errors=True)
+    launches = {}
+
+    def no_launches(part):
+        """Training itself launches no hand-written kernel."""
+        launches[part] = read_counts()
+        if any(launches[part].values()):
+            raise AssertionError(f"{part}: hand-written kernels launched "
+                                 f"while training: {launches[part]}")
+
+    torch.cuda.empty_cache()
+    cfg, params32, at = _train_olmo(dev, card, root / "olmo", reset_counts,
+                                    no_launches)
+    torch.cuda.empty_cache()
+    launches["olmo-1b serve auto"] = _serve_trained(
+        dev, card, cfg, params32, at, reset_counts, read_counts)
+    del params32
+    torch.cuda.empty_cache()
+    _restart(dev, card, cfg, root, reset_counts, no_launches)
+    torch.cuda.empty_cache()
+    _tf32(dev, card, cfg, reset_counts, no_launches)
+    torch.cuda.empty_cache()
+    _train_qwen(dev, card, reset_counts, no_launches)
+    torch.cuda.empty_cache()
+    _train_din(dev, card, reset_counts, no_launches)
+    torch.cuda.empty_cache()
+
+    # 12.7: the paper's serve CLI on the card, a BAMG built (the NSG
+    # frontier on the exact-L2 hop kernel) and served on the simulated disk
+    reset_counts()
+    t0 = time.perf_counter()
+    serve_launch.main(["--n", "4000", "--queries", "50"])
+    launches["launch.serve"] = read_counts()
+    if launches["launch.serve"]["beam_hops_l2"] < 1:
+        raise AssertionError("launch.serve: the exact-L2 hop kernel did not "
+                             "launch")
+    log(f"launch.serve: N=4000 built and served on the card in "
+        f"{time.perf_counter() - t0:.1f} s | launches "
+        f"{launches['launch.serve']}")
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 12 took {time.perf_counter() - t_phase:.1f} s | {card}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -2664,6 +3117,9 @@ def main(argv=None) -> int:
     # ---- 11. gemma-7b, h2o-danube-3-4b, qwen2-moe-a2.7b, moonshot ----------
     arch_launches = lm_archs(dev, card, reset_counts, read_counts)
 
+    # ---- 12. training on the card, the trained model served -----------------
+    train_launches = training(dev, card, reset_counts, read_counts)
+
     # ---- result lines -------------------------------------------------------
     meta = {
         "pq_adc": ("src/repro_torch/csrc/pq_adc.cu",
@@ -2702,6 +3158,8 @@ def main(argv=None) -> int:
         + json.dumps(fresh_launches))
     log("phase 11 flash_decode launches, by arch (not in the kernels line's "
         "launches): " + json.dumps(arch_launches))
+    log("phase 12 launches, by part (not in the kernels line's launches): "
+        + json.dumps(train_launches))
     def on_card(t):
         if t is None:
             return None

@@ -1,2 +1,2 @@
 """Launch layer of the port: the host device mesh that serving places
-shards on."""
+shards on, and the train and serve launchers."""

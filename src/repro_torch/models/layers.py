@@ -1,9 +1,9 @@
 """Shared neural building blocks (port of the parts of
-`repro.models.layers` that DIN and LM serving need).
+`repro.models.layers` that DIN and the LMs need, training included).
 
 Norms and RoPE run in f32 and cast back to the input's dtype, as in the
-reference.  `softmax_xent_chunked` and `constrain` wait for the
-training slice.
+reference.  `constrain` (a sharding constraint) waits for the sharded
+slice (ROADMAP Queue 1 item 7.3).
 """
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 # ---------------------------------------------------------------------------
@@ -119,3 +120,37 @@ def embed_init(generator: torch.Generator, vocab: int, d: int,
     w = torch.randn((vocab, d), generator=generator, device=generator.device,
                     dtype=torch.float32) * 0.02
     return w.to(device)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+def softmax_xent_chunked(logits_fn, x: torch.Tensor, labels: torch.Tensor,
+                         n_chunks: int = 8) -> torch.Tensor:
+    """Mean cross-entropy, looped over `n_chunks` sequence chunks so the
+    live logits tensor is (B, S/n_chunks, V) instead of (B, S, V).
+
+    logits_fn: (B, s, d) -> (B, s, V) (the LM head).  x: (B, S, d) final
+    hidden states.  labels: (B, S) int.  Each chunk's f32 logsumexp minus
+    its gold logit is summed in chunk order under a non-reentrant
+    checkpoint (the reference's `jax.checkpoint(body)`), so no chunk's
+    logits outlive it in the backward; the total is divided by B * S.
+    """
+    b, s, _ = x.shape
+    if s % n_chunks:
+        raise ValueError(f"sequence {s} does not split into {n_chunks} "
+                         f"chunks")
+    cs = s // n_chunks
+
+    def body(xi, li):
+        logits = logits_fn(xi).float()                    # (B, cs, V)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, li[..., None].long())[..., 0]
+        return torch.sum(lse - gold)
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(n_chunks):
+        sl = slice(c * cs, (c + 1) * cs)
+        total = total + checkpoint(body, x[:, sl], labels[:, sl],
+                                   use_reentrant=False)
+    return total / (b * s)

@@ -21,8 +21,16 @@ the shortlist.
 crosses over as it is (`params_from_jax`).  Every product runs in IEEE f32
 (`core.distances.f32_matmul`).  The history is mean-pooled by a masked sum
 over the sequence axis, not by `embedding_bag`'s scatter-add, so that two
-runs on the card give the same bits.  Training (`loss_fn`, `param_specs`)
-waits for a later slice.
+runs on the card give the same bits.
+
+Training: `DIN.param_tree()` is the reference's `init_params` tree (the
+module's own tensors), and `loss_fn(params, cfg, batch)` is the
+reference's stable BCE on f32 logits, computed from such a tree through
+the module's forward (`torch.func.functional_call` on a skeleton with
+meta tensors), so gradients reach the tree's leaves.  The tables' and
+MLPs' `requires_grad` is the constructor's `trainable` (off: serving).
+`param_specs` (the row-sharded tables) waits for the sharded slice
+(ROADMAP Queue 1 item 7.3).
 """
 from __future__ import annotations
 
@@ -64,8 +72,6 @@ BATCH_KEYS = ("hist_items", "hist_cates", "hist_len", "target_item",
               "target_cate")
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
 
 
 def _mlp(ws, bs, x: torch.Tensor) -> torch.Tensor:
@@ -99,7 +105,8 @@ class DIN(nn.Module):
     """DIN's tables and MLPs, and its serving functions."""
 
     def __init__(self, cfg: DINConfig, item_emb: torch.Tensor,
-                 cate_emb: torch.Tensor, attn_w, attn_b, mlp_w, mlp_b):
+                 cate_emb: torch.Tensor, attn_w, attn_b, mlp_w, mlp_b,
+                 trainable: bool = False):
         super().__init__()
         want = {"item_emb": (cfg.n_items, cfg.embed_dim),
                 "cate_emb": (cfg.n_cates, cfg.embed_dim)}
@@ -114,17 +121,27 @@ class DIN(nn.Module):
             if got != list(zip(sizes[:-1], sizes[1:])):
                 raise ValueError(f"{name} weights have shapes {got}, "
                                  f"expected widths {sizes}")
+        def param(t):
+            return nn.Parameter(t, requires_grad=trainable)
+
         self.cfg = cfg
-        self.item_emb = _frozen(item_emb)
-        self.cate_emb = _frozen(cate_emb)
-        self.attn_w = nn.ParameterList(_frozen(w) for w in attn_w)
-        self.attn_b = nn.ParameterList(_frozen(b) for b in attn_b)
-        self.mlp_w = nn.ParameterList(_frozen(w) for w in mlp_w)
-        self.mlp_b = nn.ParameterList(_frozen(b) for b in mlp_b)
+        self.item_emb = param(item_emb)
+        self.cate_emb = param(cate_emb)
+        self.attn_w = nn.ParameterList(param(w) for w in attn_w)
+        self.attn_b = nn.ParameterList(param(b) for b in attn_b)
+        self.mlp_w = nn.ParameterList(param(w) for w in mlp_w)
+        self.mlp_b = nn.ParameterList(param(b) for b in mlp_b)
 
     @property
     def device(self) -> torch.device:
         return self.item_emb.device
+
+    def param_tree(self) -> dict:
+        """The reference's `init_params` layout, holding this module's own
+        tensors: item_emb, cate_emb, attn.{w,b}[i], mlp.{w,b}[i]."""
+        return {"item_emb": self.item_emb, "cate_emb": self.cate_emb,
+                "attn": {"w": list(self.attn_w), "b": list(self.attn_b)},
+                "mlp": {"w": list(self.mlp_w), "b": list(self.mlp_b)}}
 
     def _batch(self, batch: dict) -> dict:
         """The batch's arrays (numpy or tensors) on the model's device."""
@@ -229,11 +246,12 @@ class DIN(nn.Module):
 
 
 def init_params(cfg: DINConfig, generator: torch.Generator,
-                device=None) -> DIN:
+                device=None, trainable: bool = False) -> DIN:
     """A DIN with the reference's initialisation: tables N(0, 0.05^2),
     weights N(0, 1/d_in), zero biases.  Drawn from `generator` (torch's
     numbers, not jax.random's) on its device, in the reference's order,
-    then moved to `device` (None means the CUDA device)."""
+    then moved to `device` (None means the CUDA device); `trainable` sets
+    the tensors' requires_grad."""
     dev = resolve_device(device)
     attn_sizes, mlp_sizes = cfg.layer_sizes()
 
@@ -248,7 +266,8 @@ def init_params(cfg: DINConfig, generator: torch.Generator,
 
     item_emb = table(cfg.n_items)
     cate_emb = table(cfg.n_cates)
-    return DIN(cfg, item_emb, cate_emb, *dense(attn_sizes), *dense(mlp_sizes))
+    return DIN(cfg, item_emb, cate_emb, *dense(attn_sizes), *dense(mlp_sizes),
+               trainable=trainable)
 
 
 def params_from_jax(tree: dict, cfg: DINConfig, device=None) -> DIN:
@@ -265,3 +284,43 @@ def params_from_jax(tree: dict, cfg: DINConfig, device=None) -> DIN:
                [t(b) for b in tree["attn"]["b"]],
                [t(w) for w in tree["mlp"]["w"]],
                [t(b) for b in tree["mlp"]["b"]])
+
+
+def _skeleton(cfg: DINConfig) -> DIN:
+    """A DIN of `cfg`'s shapes on the meta device: the module whose
+    forward `loss_fn` runs on a parameter tree."""
+    def t(*shape):
+        return torch.empty(shape, device="meta")
+
+    attn_sizes, mlp_sizes = cfg.layer_sizes()
+
+    def dense(sizes):
+        pairs = list(zip(sizes[:-1], sizes[1:]))
+        return [t(a, c) for a, c in pairs], [t(c) for _, c in pairs]
+
+    return DIN(cfg, t(cfg.n_items, cfg.embed_dim),
+               t(cfg.n_cates, cfg.embed_dim), *dense(attn_sizes),
+               *dense(mlp_sizes))
+
+
+def _module_names(params: dict) -> dict:
+    """A `param_tree` layout as the module's parameter names."""
+    out = {"item_emb": params["item_emb"], "cate_emb": params["cate_emb"]}
+    for part in ("attn", "mlp"):
+        for kind in ("w", "b"):
+            for i, x in enumerate(params[part][kind]):
+                out[f"{part}_{kind}.{i}"] = x
+    return out
+
+
+def loss_fn(params: dict, cfg: DINConfig, batch: dict) -> torch.Tensor:
+    """Mean binary cross-entropy of the CTR logits against batch["label"]
+    (the reference's stable form on f32 logits: max(z, 0) - z y +
+    log1p(exp(-|z|))), from a parameter tree in the reference's layout
+    (`DIN.param_tree`, or the reference's own tree as tensors) through
+    the module's forward; differentiable in the tree's leaves."""
+    logits = torch.func.functional_call(_skeleton(cfg), _module_names(params),
+                                        (batch,)).float()
+    y = to_device(batch["label"], logits.device).float()
+    return torch.mean(torch.maximum(logits, torch.zeros_like(logits))
+                      - logits * y + torch.log1p(torch.exp(-logits.abs())))

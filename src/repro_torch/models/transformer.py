@@ -1,5 +1,5 @@
-"""Decoder-only LM: config, init, prefill + decode (port of
-`repro.models.transformer`, the single-device serving path).
+"""Decoder-only LM: config, init, training forward and loss, prefill +
+decode (port of `repro.models.transformer`, the single-device path).
 
 Parameters are a dict with the reference's keys and stacked layout: each
 per-layer weight is (L, d_in, d_out), applied as `x @ w`, so a JAX
@@ -14,26 +14,39 @@ kernel only under a mesh with kv_mode="head"; on one card that is the
 same path with tp = 1), on CPU tensors the plain version.  `decode_step`
 writes the new token's K/V into the caches in place and returns them.
 
-MoE layers (`cfg.moe`) run `models.moe.moe_ffn` on one device; serving
-drops its aux loss, as the reference's serve path does.
+MoE layers (`cfg.moe`) run `models.moe.moe_ffn` on one device; training
+adds its aux loss to the loss, serving drops it, as the reference does.
 
-Sharded serving (`ShardCtx`, `lm_param_specs`, `cache_specs`,
-`_decode_seqsharded`: kv_mode "seq" / "seq_all") and training
-(`forward_hidden`, `lm_loss`, `_layer_scan`, remat) wait for later slices
-(ROADMAP Queue 1 items 7.3, 7.4).
+Training (`lm_loss` -> `forward_hidden` -> `_layer_scan`) loops over the
+layers in Python, each layer's slice of the stacked weights an `unbind`
+view of the compute-dtype copy (one stack in the backward), under the
+config's remat: "none", "full" (a non-reentrant checkpoint a layer),
+"dots" (a checkpoint that keeps the weight products, `aten.mm` /
+`aten.addmm`, and recomputes the rest: the reference's
+`dots_with_no_batch_dims_saveable`), "2level" (a checkpoint around each
+group of L / outer layers, outer the largest divisor of L at most
+sqrt(L)).  The loss loops over sequence chunks (`softmax_xent_chunked`).
+
+Sharded serving and training (`ShardCtx`, `lm_param_specs`,
+`cache_specs`, `_decode_seqsharded`: kv_mode "seq" / "seq_all") wait for
+the sharded slice (ROADMAP Queue 1 item 7.3); no entry point takes a
+`ctx`.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .._device import resolve_device, to_device
 from ..core.distances import f32_matmul
 from .attention import causal_attention, decode_attention_local
 from .layers import (act_fn, apply_norm, apply_rope, dense_init, embed_init,
-                     norm_param)
+                     norm_param, softmax_xent_chunked)
 from .moe import MoEConfig, moe_ffn
 
 # ---------------------------------------------------------------------------
@@ -57,7 +70,7 @@ class LMConfig:
     tie_embeddings: bool = False
     embed_scale: bool = False        # gemma: x *= sqrt(d_model)
     dtype: str = "bfloat16"
-    remat: str = "full"              # none | full | dots
+    remat: str = "full"              # none | full | dots | 2level
     loss_chunks: int = 8
     attn_chunk_q: int = 512
     attn_chunk_kv: int = 1024
@@ -178,7 +191,8 @@ def params_from_jax(tree: dict, cfg: LMConfig, device=None,
 
 def compute_cast(tree, dtype: torch.dtype):
     """Cast every floating tensor of a parameter tree to `dtype` (no copy
-    where it already is)."""
+    where it already is); differentiable, so gradients reach f32 master
+    weights through it."""
     if isinstance(tree, dict):
         return {k: compute_cast(v, dtype) for k, v in tree.items()}
     if torch.is_tensor(tree) and tree.is_floating_point():
@@ -186,8 +200,13 @@ def compute_cast(tree, dtype: torch.dtype):
     return tree
 
 
-def _layer(layers: dict, li: int) -> dict:
-    return {k: None if v is None else v[li] for k, v in layers.items()}
+def _unstack(layers: dict) -> list[dict]:
+    """The stacked (L, ...) layer weights as L per-layer dicts of views
+    (`unbind`: its backward is one stack, not L full-size scatters)."""
+    n = next(v.shape[0] for v in layers.values() if v is not None)
+    cols = {k: [None] * n if v is None else v.unbind(0)
+            for k, v in layers.items()}
+    return [{k: c[li] for k, c in cols.items()} for li in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -215,18 +234,19 @@ def _attn_qkv(x, lp, cfg: LMConfig, positions):
 
 
 def _ffn(x, lp, cfg: LMConfig):
-    """One layer's FFN: the dense gated MLP, or the MoE block (its aux
-    loss dropped: serving only)."""
+    """One layer's FFN: the dense gated MLP, or the MoE block.  Returns
+    (out, aux loss f32 scalar; 0 for a dense layer)."""
     h = apply_norm(cfg.norm, x, lp["mlp_norm"])
     if cfg.moe:
-        return moe_ffn(h, lp, cfg.moe, activation=cfg.activation)[0]
+        return moe_ffn(h, lp, cfg.moe, activation=cfg.activation)
     g = h @ lp["w_gate"].to(h.dtype)
     i = h @ lp["w_in"].to(h.dtype)
-    return (act_fn(cfg.activation)(g) * i) @ lp["w_out"].to(h.dtype)
+    out = (act_fn(cfg.activation)(g) * i) @ lp["w_out"].to(h.dtype)
+    return out, torch.zeros((), device=x.device)
 
 
 def layer_forward(x, lp, cfg: LMConfig, positions):
-    """Full-sequence layer (prefill). Returns (x, (k, v))."""
+    """Full-sequence layer (train / prefill). Returns (x, aux, (k, v))."""
     q, k, v = _attn_qkv(x, lp, cfg, positions)
     att = causal_attention(q, k, v, q_offset=0, window=cfg.sliding_window,
                            chunk_q=cfg.attn_chunk_q,
@@ -234,12 +254,97 @@ def layer_forward(x, lp, cfg: LMConfig, positions):
     b, s, _, _ = att.shape
     att = att.reshape(b, s, cfg.q_dim)
     x = x + att @ lp["wo"].to(att.dtype)
-    return x + _ffn(x, lp, cfg), (k, v)
+    ffn_out, aux = _ffn(x, lp, cfg)
+    return x + ffn_out, aux, (k, v)
 
 
 def lm_head_logits(params, cfg: LMConfig, x):
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x @ w.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Forward / loss (training)
+# ---------------------------------------------------------------------------
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """Keep products without batch dims (the weight products: `x @ w`
+    runs as `mm` / `addmm`); recompute the rest, the attention's and the
+    experts' `bmm`s included."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, mode: str):
+    """fn under the remat `mode`: "none" as it is, "dots" a selective
+    checkpoint (`_dots_saveable`), any other a full checkpoint."""
+    if mode == "none":
+        return fn
+    if mode == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _dots_saveable)
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=ctx)
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
+def _layer_scan(layers: list[dict], carry, cfg: LMConfig, step_fn):
+    """carry through step_fn(carry, lp) over the per-layer weights, under
+    the configured remat.  "2level": a checkpoint around each group of
+    L / outer consecutive layers (outer the largest divisor of L at most
+    sqrt(L)), nothing saved inside a group: the saved activations drop
+    from L layers' to outer group inputs plus one group's layers."""
+    if cfg.remat == "2level":
+        l = len(layers)
+        outer = max(f for f in range(1, int(l ** 0.5) + 1) if l % f == 0)
+        inner = l // outer
+
+        def group(c, lps):
+            for lp in lps:
+                c = step_fn(c, lp)
+            return c
+
+        group = _remat_wrap(group, "full")
+        for g in range(outer):
+            carry = group(carry, layers[g * inner:(g + 1) * inner])
+        return carry
+    body = _remat_wrap(step_fn, cfg.remat)
+    for lp in layers:
+        carry = body(carry, lp)
+    return carry
+
+
+def forward_hidden(params, cfg: LMConfig, tokens):
+    """tokens (B, S) -> final hidden (B, S, d) + summed MoE aux loss."""
+    dev = params["embed"].device
+    tokens = to_device(tokens, dev)
+    b, s = tokens.shape
+    positions = torch.arange(s, device=dev)[None].expand(b, s)
+
+    def step(carry, lp):
+        x, aux = carry
+        x, a, _ = layer_forward(x, lp, cfg, positions)
+        return x, aux + a
+
+    layers = _unstack(compute_cast(params["layers"], cfg.compute_dtype))
+    with f32_matmul():
+        x = embed_lookup(params["embed"], tokens, cfg)
+        x, aux = _layer_scan(layers, (x, torch.zeros((), device=dev)), cfg,
+                             step)
+        x = apply_norm(cfg.norm, x, params["final_norm"])
+    return x, aux
+
+
+def lm_loss(params, cfg: LMConfig, tokens, labels):
+    """Mean next-token cross entropy (+ MoE aux). tokens/labels (B, S).
+    Returns (ce + aux, {"ce": ce, "aux": aux})."""
+    x, aux = forward_hidden(params, cfg, tokens)
+    labels = to_device(labels, x.device)
+    with f32_matmul():
+        ce = softmax_xent_chunked(
+            lambda xc: lm_head_logits(params, cfg, xc), x, labels,
+            n_chunks=min(cfg.loss_chunks, x.shape[1]))
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -281,8 +386,8 @@ def serve_prefill(params, cfg: LMConfig, tokens):
     cv = torch.empty_like(ck)
     with f32_matmul():
         x = embed_lookup(params["embed"], tokens, cfg)
-        for li in range(cfg.n_layers):
-            x, (k, v) = layer_forward(x, _layer(layers, li), cfg, positions)
+        for li, lp in enumerate(_unstack(layers)):
+            x, _, (k, v) = layer_forward(x, lp, cfg, positions)
             if sc < s:
                 k, v = k[:, s - sc:], v[:, s - sc:]
                 off = (s - sc) % sc
@@ -333,15 +438,14 @@ def decode_step(params, cfg: LMConfig, tokens, positions, caches,
     new_len = torch.clamp(positions + 1, max=sc).to(torch.int32)
     with f32_matmul():
         x = embed_lookup(params["embed"], tokens, cfg)
-        for li in range(cfg.n_layers):
-            lp = _layer(layers, li)
+        for li, lp in enumerate(_unstack(layers)):
             q, k, v = _attn_qkv(x, lp, cfg, positions[:, None])
             _write_cache_local(ck_all[li], cv_all[li], k, v, write_pos)
             att = decode_attention_local(q[:, 0], ck_all[li], cv_all[li],
                                          new_len, backend=backend)
             att = att.to(x.dtype).reshape(b, 1, cfg.q_dim)
             x = x + att @ lp["wo"].to(att.dtype)
-            x = x + _ffn(x, lp, cfg)
+            x = x + _ffn(x, lp, cfg)[0]
         x = apply_norm(cfg.norm, x, params["final_norm"])
         logits = lm_head_logits(params, cfg, x)[:, 0]
     return logits, (ck_all, cv_all, new_len)

@@ -66,7 +66,11 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.configs.h2o_danube3_4b",
             "repro_torch.configs.qwen2_moe_a2_7b",
             "repro_torch.configs.moonshot_v1_16b_a3b",
-            "repro_torch.configs.registry"} <= set(mods)
+            "repro_torch.configs.registry", "repro_torch.utils.tree",
+            "repro_torch.data.pipeline", "repro_torch.train.optimizer",
+            "repro_torch.train.trainer", "repro_torch.train.compression",
+            "repro_torch.train.checkpoint", "repro_torch.train.ft",
+            "repro_torch.launch.train", "repro_torch.launch.serve"} <= set(mods)
     code = "\n".join([
         "import importlib, sys, runpy",
         "for name in ('jax', 'jaxlib', 'repro'):",
