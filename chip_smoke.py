@@ -3,7 +3,8 @@
 its disk-resident index, its serving fleet, deployment and freshness, DIN
 serving, LM serving (OLMo-1B, Gemma-7B, H2O-Danube3-4B,
 Qwen1.5-MoE-A2.7B, Moonlight-16B-A3B) and training (OLMo-1B,
-Qwen1.5-MoE-A2.7B, DIN) on one NVIDIA GPU.
+Qwen1.5-MoE-A2.7B, DIN, and the GNN family: GraphCast, NequIP, MACE,
+DimeNet) on one NVIDIA GPU.
 
 Run from the root of a checkout, with one card:
 
@@ -11,8 +12,8 @@ Run from the root of a checkout, with one card:
     python3 chip_smoke.py --n 100000 --build-n 20000 --disk-n 5000  # quicker
 
 Phases, in the order they run (9 runs right after 4, on its corpus; 8
-right after 5, on its BAMG; 10 right after 8, on its index; 11, then 12
-last);
+right after 5, on its BAMG; 10 right after 8, on its index; 11, 12,
+then 13 last);
 any failed
 check raises and the script exits nonzero:
 
@@ -169,7 +170,7 @@ check raises and the script exits nonzero:
    logits are held to the same rule on all of them.  Each arch logs
    prefill ms and tokens/s, the step's median, min and max and tokens/s,
    the card's busy share, the peak memory and the launches;
-12. training, last, through `train.ft.run_loop` / `run_with_recovery`,
+12. training, through `train.ft.run_loop` / `run_with_recovery`,
    `train.trainer.make_train_step` and `train.checkpoint` (f32 masters,
    AdamW after 2 warmup steps, lr 1e-4 for the LMs and 1e-3 for DIN):
    OLMo-1B train_4k at its full
@@ -188,7 +189,31 @@ check raises and the script exits nonzero:
    Qwen1.5-MoE-A2.7B at full width with 2 of its 24 layers, B = 4 x
    1,024, 4 steps (loss, ce and aux); DIN train_batch at its full config
    (B = 65,536), 8 steps; then `python -m repro_torch.launch.serve` (N =
-   4,000) on the card.  Training itself launches no hand-written kernel.
+   4,000) on the card.  Training itself launches no hand-written kernel;
+13. the GNN family, last, trained through `train.trainer.make_train_step`
+   (AdamW, lr 1e-3, 2 warmup steps), 8 steps each at the full configs:
+   GraphCast (16 layers, d_hidden 512, bf16 activations over f32 masters)
+   on full_graph_sm (`random_graph(2708, 10556, d_feat=1433)`, edges padded
+   with -1 to 10,560, N(0, 1) targets) and on minibatch_lg (a base graph of
+   232,965 nodes and a tenth of the cell's 114,615,892 edges, d_feat 602,
+   then a new `padded_sample` of 1,024 seeds at fanout [15, 10] each step,
+   padded to `expected_sizes`' 169,984 nodes x 168,960 edges, its sampling
+   timed apart); NequIP (5 x 32), MACE (2 x 128, correlation 3) and
+   DimeNet (6 x 128, triplets capped at 4 x E) on the molecule cell
+   (`molecules_batch(128, 30, 64)`: 3,840 atoms, 8,192 edges).  Each run
+   logs the first step, the median of the others, graphs/s or (seed) nodes
+   a second, the model FLOP share (the reference's dry-run count) of the
+   bf16 peak (GraphCast) or of 67 TFLOP/s f32, the busy share and kernel
+   runs over one profiled step, and the peak memory; losses finite and
+   falling.  Before training, one f32 loss-and-gradient evaluation on the
+   card against the CPU (GraphCast in f32 with 2 of its 16 layers, the
+   others at full config): losses within rtol 1e-5, every gradient leaf
+   within 1e-4 x its CPU max + 1e-6; GraphCast's bf16 step-0 loss beside
+   its f32 one; NequIP's energies invariant under a rotation and a
+   translation (rtol 2e-4, atol 1e-4) and its forces rotating with the
+   positions (rtol 1e-3, atol 1e-4).  Then `python -m
+   repro_torch.launch.train --arch graphcast --steps 3` on the card.  No
+   hand-written kernel lies on the GNN path: every counter must stay 0.
 
 The last lines are the script's time, the card's nvidia-smi line, one JSON
 object with every kernel's numbers, and `{"ok": true, "device": {...}}`.
@@ -2185,6 +2210,364 @@ def training(dev, card, reset_counts, read_counts) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Training the GNN family (phase 13)
+# ---------------------------------------------------------------------------
+F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+GNN_STEPS = 8
+
+
+def gnn_flops(arch_id: str, cfg, n: int, e: int, t: int = 0) -> float:
+    """A step's model FLOPs from the config dims (x2 MACs, x3 train): a
+    copy of the reference's dry-run count (`launch/cells.py`'s
+    `_gnn_flops`)."""
+    if arch_id == "graphcast":
+        h = cfg.d_hidden
+        per_edge = 3 * h * h + h * h        # edge MLP (2 layers) approx
+        per_node = 2 * h * h + h * h
+        enc = n * (cfg.d_feat * h + h * h) + e * (cfg.d_edge * h + h * h)
+        dec = n * (h * h + h * cfg.n_vars)
+        return 6.0 * (cfg.n_layers * (e * per_edge + n * per_node) + enc + dec)
+    if arch_id in ("nequip", "mace"):
+        # per path (l1,l2,l3): radial MLP MACs + CG contraction ~27 mults/C
+        c = cfg.channels
+        paths = 15  # l<=2 CG paths
+        per_edge = 2 * paths * (cfg.n_rbf * cfg.radial_hidden
+                                + cfg.radial_hidden * c + 27 * c)
+        n_mix = 3 if arch_id == "nequip" else (1 + 2 * paths)
+        per_node = 2 * n_mix * 9 * c * c
+        return 6.0 * cfg.n_layers * (e * per_edge + n * per_node)
+    if arch_id == "dimenet":
+        h = cfg.d_hidden
+        per_tri = h * cfg.n_bilinear * (1 + h)
+        per_edge = 2 * h * h
+        return 6.0 * cfg.n_blocks * (t * per_tri + e * per_edge)
+    raise ValueError(arch_id)
+
+
+def _gnn_loss(mod, cfg):
+    return lambda p, b: (mod.loss_fn(p, cfg, b), {})
+
+
+def _to(batch, dev):
+    import torch
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def _card_equals_cpu(name, mod, cfg, params, batch, dev):
+    """One f32 loss-and-gradient evaluation at `params` on the card and
+    on the CPU: the losses within rtol 1e-5, every gradient leaf within
+    1e-4 x its CPU max + 1e-6.  Returns (card loss, the largest share of
+    that bound a leaf's max |card - cpu| reached, leaves)."""
+    import torch
+
+    from repro_torch.train.trainer import loss_and_grads
+    from repro_torch.utils.tree import flatten_with_path, tree_map
+
+    loss, _, g = loss_and_grads(_gnn_loss(mod, cfg), params, _to(batch, dev))
+    cpu = torch.device("cpu")
+    c_loss, _, c_g = loss_and_grads(
+        _gnn_loss(mod, cfg), tree_map(lambda t: t.detach().cpu(), params),
+        _to(batch, cpu))
+    torch.testing.assert_close(loss.cpu(), c_loss, rtol=1e-5, atol=0.0,
+                               msg=lambda m: f"{name} card vs CPU loss: {m}")
+    worst = 0.0
+    leaves = flatten_with_path(c_g)
+    for (k, a), (_, c) in zip(flatten_with_path(g), leaves):
+        err = float((a.cpu() - c).abs().max())
+        top = float(c.abs().max())
+        if err > 1e-4 * top + 1e-6:
+            raise AssertionError(f"{name} card vs CPU gradient {k}: max "
+                                 f"|card - cpu| {err} > 1e-4 x {top} + 1e-6")
+        worst = max(worst, err / (1e-4 * top + 1e-6))
+    return float(loss), worst, len(leaves)
+
+
+def _gnn_train(name, card, dev, mod, cfg, params, batch_fn, flops, peak,
+               per_step, unit, reset_counts, no_launches):
+    """GNN_STEPS steps of `make_train_step` (AdamW lr 1e-3, 2 warmup
+    steps) from `params`, batch_fn(step) made before each step (its time
+    logged apart); losses finite and falling.  Logs the first step, the
+    median of the unprofiled others, `per_step` `unit` a second, the
+    model FLOP share of `peak`, the busy share and kernel runs over one
+    profiled step, and the peak memory."""
+    import torch
+
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import init_train_state, make_train_step
+
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=GNN_STEPS)
+    times, busy, t_batch, losses = [], {}, [], []
+    step = _timed(make_train_step(_gnn_loss(mod, cfg), opt), times,
+                  profile_at=GNN_STEPS - 2, busy=busy)
+    state = init_train_state(params, opt)
+    reset_counts()
+    for s in range(GNN_STEPS):
+        t0 = time.perf_counter()
+        batch = batch_fn(s)
+        t_batch.append(time.perf_counter() - t0)
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    no_launches(name)
+    _finite_falling(name, losses)
+    first, rest = times[0], times[1:]
+    med = statistics.median(rest)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"train {name}: {GNN_STEPS} steps | losses "
+        + ", ".join(f"{v:.5f}" for v in losses)
+        + f" | first step {first:.1f} ms | step median {med:.2f} ms (min "
+        f"{min(rest):.2f}, max {max(rest):.2f}; {len(rest)} unprofiled "
+        f"steps) | {per_step / med * 1e3:.1f} {unit}/s | model FLOPs "
+        f"{flops:.4e} a step = {flops / (med * 1e-3) / 1e12:.2f} TFLOP/s, "
+        f"{flops / (med * 1e-3) / peak:.3%} of {peak / 1e12:.0f} TFLOP/s | "
+        f"card busy {busy['ms']:.2f} ms over profiled step {GNN_STEPS - 1} "
+        f"({busy['runs']} kernel runs; wall {busy['wall']:.2f} ms) = "
+        f"{busy['ms'] / med:.2%} of the median | batches "
+        f"{sum(t_batch):.2f} s on the host apart from the steps (max "
+        f"{max(t_batch):.2f} s) | peak {peak_gib:.2f} GiB | {card}")
+    return losses
+
+
+def _graph_cells(dev, card, reset_counts, no_launches):
+    """Phase 13.1-13.2: graphcast at its full config (bf16 activations,
+    f32 masters) on full_graph_sm and on minibatch_lg's fanout samples."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import graphcast_cfg
+    from repro_torch.configs.base import GNN_SHAPES, pad_to_multiple
+    from repro_torch.data.synthetic import random_graph
+    from repro_torch.models.gnn import graphcast
+    from repro_torch.models.gnn.sampler import (csr_from_edges,
+                                                expected_sizes, padded_sample)
+
+    # --- 13.1 full_graph_sm ------------------------------------------------
+    shape = GNN_SHAPES["full_graph_sm"]
+    cfg = graphcast_cfg.model_config(d_feat=shape.d_feat)
+    g = random_graph(shape.n_nodes, shape.n_edges, d_feat=shape.d_feat,
+                     seed=SEED)
+    e_pad = pad_to_multiple(shape.n_edges, 16) - shape.n_edges
+    pad = -np.ones(e_pad, np.int32)
+    batch = {"node_feat": g.node_feat,
+             "edge_src": np.concatenate([g.edge_src, pad]),
+             "edge_dst": np.concatenate([g.edge_dst, pad]),
+             "edge_feat": np.concatenate(
+                 [g.edge_feat, np.zeros((e_pad, cfg.d_edge), np.float32)]),
+             "targets": np.random.default_rng(SEED).normal(
+                 size=(shape.n_nodes, cfg.n_vars)).astype(np.float32)}
+    n, e = len(g.node_feat), len(batch["edge_src"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    reset_counts()
+    l32, worst, n_leaves = _card_equals_cpu(
+        "graphcast full_graph_sm f32, 2 layers", graphcast, cfg2,
+        graphcast.init_params(cfg2, gen, device=dev), batch, dev)
+    no_launches("graphcast card vs CPU")
+    log(f"graphcast card vs CPU: f32, {cfg2.n_layers} of {cfg.n_layers} "
+        f"layers at full width on full_graph_sm: loss {l32:.7f} within rtol "
+        f"1e-5 of the CPU's; {n_leaves} gradient leaves, each within its "
+        f"bound (the worst at {worst:.2%} of 1e-4 x max |cpu| + 1e-6) | "
+        f"{card}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = graphcast.init_params(cfg, gen, device=dev)
+    on_card = _to(batch, dev)
+    with torch.no_grad():
+        f32_0 = float(graphcast.loss_fn(
+            params, dataclasses.replace(cfg, dtype="float32"), on_card))
+    log(f"graphcast full_graph_sm: N={n}, E={e} ({e_pad} -1 pads), d_feat "
+        f"{cfg.d_feat}, {cfg.n_layers} layers, d_hidden {cfg.d_hidden}, "
+        f"{cfg.dtype} activations over f32 masters; the step-0 parameters' "
+        f"loss in float32 {f32_0:.5f}")
+    losses = _gnn_train(
+        "graphcast full_graph_sm", card, dev, graphcast, cfg, params,
+        lambda s: on_card, gnn_flops("graphcast", cfg, n, e), BF16_FLOP_PER_S,
+        n, "nodes", reset_counts, no_launches)
+    log(f"  graphcast full_graph_sm step-0 loss: {cfg.dtype} {losses[0]:.5f}, "
+        f"float32 {f32_0:.5f} (|diff| / f32 {abs(losses[0] - f32_0) / f32_0:.3e})")
+    del params, on_card
+    torch.cuda.empty_cache()
+
+    # --- 13.2 minibatch_lg: fanout samples of a tenth of the cell's edges --
+    shape = GNN_SHAPES["minibatch_lg"]
+    cfg = graphcast_cfg.model_config(d_feat=shape.d_feat)
+    t0 = time.perf_counter()
+    g = random_graph(shape.n_nodes, shape.n_edges // 10, d_feat=shape.d_feat,
+                     seed=SEED)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    csr = csr_from_edges(shape.n_nodes, g.edge_src, g.edge_dst)
+    t_csr = time.perf_counter() - t0
+    fan = list(shape.fanout)
+    mn, me = expected_sizes(shape.batch_nodes, fan)
+    log(f"graphcast minibatch_lg: base graph N={shape.n_nodes}, "
+        f"E={len(g.edge_src)} (the cell's {shape.n_edges} cut to a tenth), "
+        f"d_feat {shape.d_feat}: generated in {t_gen:.1f} s, CSR in "
+        f"{t_csr:.1f} s | fanout {fan} from {shape.batch_nodes} seeds, padded "
+        f"to {mn} nodes x {me} edges")
+    sampled = []
+
+    def batch_fn(s):
+        b = padded_sample(csr, g.node_feat, g.labels, shape.batch_nodes, fan,
+                          step=s, max_nodes=mn, max_edges=me, seed=SEED)
+        sampled.append((int((b["edge_src"] >= 0).sum()),
+                        int(b["node_feat"].any(1).sum())))
+        rng = np.random.default_rng(np.random.SeedSequence([SEED, s, 13]))
+        b["edge_feat"] = rng.normal(size=(me, cfg.d_edge)).astype(np.float32)
+        b["targets"] = rng.normal(size=(mn, cfg.n_vars)).astype(np.float32)
+        del b["labels"], b["seed_mask"]
+        return _to(b, dev)
+
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    _gnn_train("graphcast minibatch_lg", card, dev, graphcast, cfg,
+               graphcast.init_params(cfg, gen, device=dev), batch_fn,
+               gnn_flops("graphcast", cfg, mn, me), BF16_FLOP_PER_S,
+               shape.batch_nodes, "seed nodes", reset_counts, no_launches)
+    log("  minibatch_lg samples (real edges, nodes with features): "
+        + ", ".join(f"{a}/{b}" for a, b in sampled))
+    del g, csr
+    torch.cuda.empty_cache()
+
+
+def _molecule_batch(arch):
+    """The molecule cell: molecules_batch(128, 30, 64) (3,840 atoms, 8,192
+    edges), species abs(labels) % 8, N(0, 1) energies; dimenet's triplets
+    capped at 4 x E."""
+    import numpy as np
+
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.data.synthetic import molecules_batch
+    from repro_torch.models.gnn.dimenet import build_triplets
+
+    shape = GNN_SHAPES["molecule"]
+    mol, gid = molecules_batch(shape.batch_graphs, shape.n_nodes,
+                               shape.n_edges, seed=SEED)
+    b = {"species": (np.abs(mol.labels) % 8).astype(np.int32),
+         "pos": mol.pos, "edge_src": mol.edge_src, "edge_dst": mol.edge_dst,
+         "graph_ids": gid,
+         "energy": np.random.default_rng(SEED).normal(
+             size=shape.batch_graphs).astype(np.float32)}
+    if arch == "dimenet":
+        b["tri_in"], b["tri_out"] = build_triplets(
+            mol.edge_src, mol.edge_dst, max_triplets=4 * len(mol.edge_src))
+    return b
+
+
+def _nequip_equivariance(card, dev, params, cfg, batch):
+    """NequIP at its full config on the molecule batch: energies invariant
+    under a rotation plus a translation (rtol 2e-4, atol 1e-4), forces
+    rotating with the positions (rtol 1e-3, atol 1e-4)."""
+    import torch
+
+    from repro_torch.models.gnn import nequip
+    from repro_torch.models.gnn.so3 import _random_rotations
+
+    b = _to(batch, dev)
+    r = torch.from_numpy(_random_rotations(1, seed=9)[0]).float().to(dev)
+    shift = torch.tensor([1.7, -0.3, 2.2], device=dev)
+    with torch.no_grad():
+        e0 = nequip.forward_energy(params, cfg, b)
+        e1 = nequip.forward_energy(params, cfg,
+                                   dict(b, pos=b["pos"] @ r.T + shift))
+    torch.testing.assert_close(e1, e0, rtol=2e-4, atol=1e-4)
+    f = nequip.forces_fn(params, cfg, b)
+    f_rot = nequip.forces_fn(params, cfg, dict(b, pos=b["pos"] @ r.T))
+    torch.testing.assert_close(f_rot, f @ r.T, rtol=1e-3, atol=1e-4)
+    log(f"nequip equivariance at full config on the molecule batch: "
+        f"energies max |E(R x + t) - E(x)| {float((e1 - e0).abs().max()):.3e} "
+        f"(|E| max {float(e0.abs().max()):.4f}); forces max |F(R x) - R F(x)| "
+        f"{float((f_rot - f @ r.T).abs().max()):.3e} (|F| max "
+        f"{float(f.abs().max()):.4f}) | {card}")
+
+
+def _molecule_cells(dev, card, reset_counts, no_launches):
+    """Phase 13.3: nequip, mace and dimenet at their full configs on the
+    molecule cell: card against CPU in f32, NequIP's equivariance, then
+    GNN_STEPS train steps."""
+    import torch
+
+    from repro_torch.configs import dimenet_cfg, mace_cfg, nequip_cfg
+    from repro_torch.models.gnn import dimenet, mace, nequip
+
+    for arch, cfg_mod, mod in (("nequip", nequip_cfg, nequip),
+                               ("mace", mace_cfg, mace),
+                               ("dimenet", dimenet_cfg, dimenet)):
+        cfg = cfg_mod.model_config()
+        batch = _molecule_batch(arch)
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        params = mod.init_params(cfg, gen, device=dev)
+        reset_counts()
+        l32, worst, n_leaves = _card_equals_cpu(f"{arch} molecule", mod, cfg,
+                                                params, batch, dev)
+        if arch == "nequip":
+            _nequip_equivariance(card, dev, params, cfg, batch)
+        no_launches(f"{arch} checks")
+        n, e = len(batch["species"]), len(batch["edge_src"])
+        t = len(batch.get("tri_in", ()))
+        n_graphs = len(batch["energy"])
+        log(f"{arch} molecule: {n_graphs} graphs, N={n}, E={e}"
+            + (f", T={t} triplet slots ({int((batch['tri_in'] >= 0).sum())} "
+               f"real)" if t else "")
+            + f" | card vs CPU in f32: loss {l32:.6f} within rtol 1e-5; "
+            f"{n_leaves} gradient leaves, each within its bound (the worst at "
+            f"{worst:.2%} of 1e-4 x max |cpu| + 1e-6) | {card}")
+        on_card = _to(batch, dev)
+        _gnn_train(f"{arch} molecule", card, dev, mod, cfg, params,
+                   lambda s: on_card, gnn_flops(arch, cfg, n, e, t),
+                   F32_FLOP_PER_S, n_graphs, "graphs", reset_counts,
+                   no_launches)
+        del params, on_card
+        torch.cuda.empty_cache()
+
+
+def gnn_training(dev, card, reset_counts, read_counts) -> dict:
+    """Phase 13: the GNN family trained on the card through
+    `train.trainer.make_train_step` at full width, each run's numbers
+    logged, then the GNN launcher on the card.  Returns the launches of
+    the hand-written kernels by part: none may launch."""
+    import os
+
+    import torch
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def no_launches(part):
+        launches[part] = read_counts()
+        if any(launches[part].values()):
+            raise AssertionError(f"{part}: hand-written kernels launched "
+                                 f"in the GNN family: {launches[part]}")
+
+    torch.cuda.empty_cache()
+    _graph_cells(dev, card, reset_counts, no_launches)
+    _molecule_cells(dev, card, reset_counts, no_launches)
+
+    # 13.4: the GNN launcher on the card (graphcast's reduced config)
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "graphcast", "--steps", "3", "--log-every", "1"],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    if out.returncode != 0 or "device=cuda" not in out.stdout \
+            or not out.stdout.rstrip().endswith("done"):
+        raise AssertionError(f"launch.train --arch graphcast failed "
+                             f"({out.returncode}): {out.stdout[-2000:]}"
+                             f"{out.stderr[-2000:]}")
+    steps = [l for l in out.stdout.splitlines() if l.startswith("step ")]
+    log(f"launch.train --arch graphcast --steps 3 on the card: "
+        f"{time.perf_counter() - t0:.1f} s | " + " | ".join(steps))
+    log(f"phase 13 took {time.perf_counter() - t_phase:.1f} s | {card}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -3120,6 +3503,9 @@ def main(argv=None) -> int:
     # ---- 12. training on the card, the trained model served -----------------
     train_launches = training(dev, card, reset_counts, read_counts)
 
+    # ---- 13. the GNN family trained on the card -----------------------------
+    gnn_launches = gnn_training(dev, card, reset_counts, read_counts)
+
     # ---- result lines -------------------------------------------------------
     meta = {
         "pq_adc": ("src/repro_torch/csrc/pq_adc.cu",
@@ -3160,6 +3546,9 @@ def main(argv=None) -> int:
         "launches): " + json.dumps(arch_launches))
     log("phase 12 launches, by part (not in the kernels line's launches): "
         + json.dumps(train_launches))
+    log("phase 13 launches, by part (not in the kernels line's launches; "
+        "no hand-written kernel lies on the GNN path): "
+        + json.dumps(gnn_launches))
     def on_card(t):
         if t is None:
             return None

@@ -1,5 +1,5 @@
-"""Deterministic synthetic data: the vector corpora, the LM token streams
-and the DIN event streams of `repro.data.synthetic`.
+"""Deterministic synthetic data: the vector corpora, the LM token streams,
+the graphs and the DIN event streams of `repro.data.synthetic`.
 
 Everything is drawn with numpy exactly as the reference draws it, so for
 a given seed the arrays are bit-identical to `repro`'s; the exact ground
@@ -79,6 +79,73 @@ def lm_batch(step: int, batch: int, seq_len: int, vocab: int, seed: int = 0):
     u = rng.random((batch, seq_len + 1))
     toks = np.minimum((vocab * (u ** 3)), vocab - 1).astype(np.int32)
     return toks[:, :-1], toks[:, 1:]
+
+
+# ---------------------------------------------------------------------------
+# Graphs
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class GraphBatch:
+    node_feat: np.ndarray   # (n_nodes, d_feat) float32
+    edge_src: np.ndarray    # (n_edges,) int32
+    edge_dst: np.ndarray    # (n_edges,) int32
+    edge_feat: np.ndarray   # (n_edges, d_edge) float32
+    labels: np.ndarray      # (n_nodes,) int32 or (n_nodes, d_out) float32
+    pos: np.ndarray | None = None   # (n_nodes, 3) for geometric GNNs
+
+
+def random_graph(n_nodes: int, n_edges: int, d_feat: int, d_edge: int = 8,
+                 n_classes: int = 16, seed: int = 0,
+                 geometric: bool = False) -> GraphBatch:
+    """Degree-skewed random graph; geometric=True adds 3D positions and
+    builds edges by proximity (radius-graph style, molecule regime).
+    numpy arrays, drawn in the reference's order."""
+    rng = np.random.default_rng(seed)
+    if geometric:
+        pos = (rng.normal(size=(n_nodes, 3)).astype(np.float32)
+               * (n_nodes ** (1 / 3)))
+        # kNN edges in 3D
+        k = max(1, min(n_nodes - 1, n_edges // n_nodes))
+        d2 = ((pos[:, None, :] - pos[None, :, :]) ** 2).sum(-1)
+        np.fill_diagonal(d2, np.inf)
+        nbr = np.argsort(d2, axis=1)[:, :k]
+        src = np.repeat(np.arange(n_nodes), k).astype(np.int32)
+        dst = nbr.reshape(-1).astype(np.int32)
+        src, dst = src[:n_edges], dst[:n_edges]
+        if len(src) < n_edges:  # pad by repeating
+            reps = -(-n_edges // len(src))
+            src = np.tile(src, reps)[:n_edges]
+            dst = np.tile(dst, reps)[:n_edges]
+    else:
+        pos = None
+        # preferential-attachment-ish skew
+        w = 1.0 / (1.0 + np.arange(n_nodes))
+        w /= w.sum()
+        src = rng.choice(n_nodes, size=n_edges, p=w).astype(np.int32)
+        dst = rng.integers(0, n_nodes, n_edges).astype(np.int32)
+    node_feat = rng.normal(size=(n_nodes, d_feat)).astype(np.float32)
+    edge_feat = rng.normal(size=(n_edges, d_edge)).astype(np.float32)
+    labels = rng.integers(0, n_classes, n_nodes).astype(np.int32)
+    return GraphBatch(node_feat=node_feat, edge_src=src, edge_dst=dst,
+                      edge_feat=edge_feat, labels=labels, pos=pos)
+
+
+def molecules_batch(batch: int, n_nodes: int, n_edges: int, seed: int = 0):
+    """Batched small molecules as one disjoint-union graph: (GraphBatch,
+    graph ids (batch * n_nodes,) int32)."""
+    gs = [random_graph(n_nodes, n_edges, d_feat=16, seed=seed * 1000 + i,
+                       geometric=True) for i in range(batch)]
+    off = np.arange(batch) * n_nodes
+    return GraphBatch(
+        node_feat=np.concatenate([g.node_feat for g in gs]),
+        edge_src=np.concatenate([g.edge_src + o for g, o in zip(gs, off)]
+                                ).astype(np.int32),
+        edge_dst=np.concatenate([g.edge_dst + o for g, o in zip(gs, off)]
+                                ).astype(np.int32),
+        edge_feat=np.concatenate([g.edge_feat for g in gs]),
+        labels=np.concatenate([g.labels for g in gs]),
+        pos=np.concatenate([g.pos for g in gs]),
+    ), np.repeat(np.arange(batch), n_nodes).astype(np.int32)
 
 
 # ---------------------------------------------------------------------------

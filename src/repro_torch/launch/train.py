@@ -7,8 +7,10 @@ Runs the train step (`train.trainer.make_train_step`, state updated in
 place) on the card unless `--device cpu`, with checkpoint/restart in the
 reference's format (--ckpt-dir), deterministic step-indexed data and
 metrics logging.  --reduced (the default) uses the arch's smoke config;
---full the published one.  The LM and recsys families train; the GNN
-architectures raise (ROADMAP Queue 1 item 7.5).
+--full the published one.  The LM and recsys families train, and of the
+GNN family graphcast, on a 256-node random graph with fixed targets (the
+reference's demo); the other GNN archs exit as the reference's launcher
+does.
 """
 import argparse
 import time
@@ -63,7 +65,7 @@ def main(argv=None) -> None:
             return {"tokens": to_device(t, dev), "labels": to_device(l, dev)}
 
         params = init_lm_params(cfg, gen, device=dev)
-    else:  # recsys: get_arch raises for the unported GNN family
+    elif mod.FAMILY == "recsys":
         from ..models.recsys import din as m
 
         def loss_fn(params, batch):
@@ -78,6 +80,30 @@ def main(argv=None) -> None:
 
         params = m.init_params(cfg, gen, device=dev,
                                trainable=True).param_tree()
+    else:  # gnn
+        import numpy as np
+
+        from ..data.synthetic import random_graph
+        from ..models.gnn import graphcast as gc
+        if args.arch != "graphcast":
+            raise SystemExit("gnn trainer demo supports graphcast; "
+                             "see tests/test_arch_smoke.py for the others")
+        g = random_graph(256, 2048, d_feat=cfg.d_feat, seed=args.seed)
+        targets = np.random.default_rng(1).normal(
+            size=(256, cfg.n_vars)).astype(np.float32)
+        graph = {"node_feat": to_device(g.node_feat, dev),
+                 "edge_src": to_device(g.edge_src, dev),
+                 "edge_dst": to_device(g.edge_dst, dev),
+                 "edge_feat": to_device(g.edge_feat, dev),
+                 "targets": to_device(targets, dev)}
+
+        def loss_fn(params, batch):
+            return gc.loss_fn(params, cfg, batch), {}
+
+        def batch_fn(step):
+            return graph
+
+        params = gc.init_params(cfg, gen, device=dev)
 
     print(f"arch={args.arch} reduced={args.reduced} "
           f"params={tree_count_params(params):,} device={dev}")

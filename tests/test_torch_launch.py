@@ -3,6 +3,7 @@ on the CPU, at the reduced configs: a run ends, writes a checkpoint in the
 reference's format and resumes from it; without `--device` and without a
 card the launchers raise rather than fall back to the CPU."""
 import json
+import math
 import os
 
 import pytest
@@ -41,9 +42,30 @@ def test_launchers_need_a_card_without_device(main, monkeypatch):
         main(["--steps", "1"] if main is train_launch.main else ["--n", "50"])
 
 
-def test_train_gnn_raises_naming_its_slice():
-    with pytest.raises(NotImplementedError, match="7.5"):
-        train_launch.main(["--arch", "graphcast", "--device", "cpu"])
+def test_train_gnn_runs_on_cpu_and_resumes(tmp_path, capsys):
+    """graphcast's reduced config trains on the CPU, checkpoints, and a
+    second run resumes from --ckpt-dir at the step it reached."""
+    args = ["--arch", "graphcast", "--device", "cpu", "--log-every", "1",
+            "--ckpt-dir", str(tmp_path)]
+    train_launch.main(args + ["--steps", "2"])
+    out = capsys.readouterr().out
+    assert "arch=graphcast reduced=True" in out and "device=cpu" in out
+    losses = [float(l.split("loss ")[1].split()[0])
+              for l in out.splitlines() if l.startswith("step ")]
+    assert len(losses) == 2 and all(math.isfinite(v) for v in losses)
+    train_launch.main(args + ["--steps", "3"])
+    out = capsys.readouterr().out
+    assert "restored step 2" in out
+    assert [l.split()[1] for l in out.splitlines()
+            if l.startswith("step ")] == ["3"]
+
+
+@pytest.mark.parametrize("arch", ["nequip", "mace", "dimenet"])
+def test_train_gnn_raises_naming_its_slice(arch):
+    """The GNN archs but graphcast exit as the reference's launcher does,
+    naming the one it trains."""
+    with pytest.raises(SystemExit, match="supports graphcast"):
+        train_launch.main(["--arch", arch, "--device", "cpu", "--steps", "1"])
 
 
 def test_serve_runs_on_cpu(capsys):

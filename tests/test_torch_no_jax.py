@@ -70,7 +70,15 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.data.pipeline", "repro_torch.train.optimizer",
             "repro_torch.train.trainer", "repro_torch.train.compression",
             "repro_torch.train.checkpoint", "repro_torch.train.ft",
-            "repro_torch.launch.train", "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.launch.serve",
+            "repro_torch.models.gnn", "repro_torch.models.gnn.common",
+            "repro_torch.models.gnn.so3", "repro_torch.models.gnn.sampler",
+            "repro_torch.models.gnn.graphcast",
+            "repro_torch.models.gnn.nequip", "repro_torch.models.gnn.mace",
+            "repro_torch.models.gnn.dimenet",
+            "repro_torch.configs.graphcast_cfg",
+            "repro_torch.configs.nequip_cfg", "repro_torch.configs.mace_cfg",
+            "repro_torch.configs.dimenet_cfg"} <= set(mods)
     code = "\n".join([
         "import importlib, sys, runpy",
         "for name in ('jax', 'jaxlib', 'repro'):",

@@ -1,7 +1,8 @@
 """The port's architecture registry and configs against the reference's.
 
-Every ported config equals the reference's field for field
-(`dataclasses.asdict`, the MoE block included), full and reduced; the
+Every config equals the reference's field for field
+(`dataclasses.asdict`, the MoE block included), full and reduced, for
+all ten archs (the GNN family's too); the
 parameter counts are the reference's; `init_lm_params` stores the
 reference's shapes in the dtype asked for, at the reference's scales.
 """
@@ -22,13 +23,12 @@ GNN_ARCHS = ["dimenet", "graphcast", "mace", "nequip"]
 
 
 def test_ported_ids():
-    assert sorted(registry.ARCHS) == sorted(LM_ARCHS + ["din"])
-    assert sorted(set(jregistry.ARCHS) - set(registry.ARCHS)) == GNN_ARCHS
+    assert sorted(registry.ARCHS) == sorted(LM_ARCHS + GNN_ARCHS + ["din"])
+    assert sorted(registry.ARCHS) == sorted(jregistry.ARCHS)
     for aid in registry.ARCHS:
         assert registry.get_arch(aid).ARCH_ID == aid
-    assert registry.all_cells() == [
-        cell for cell in jregistry.all_cells() if cell[0] in registry.ARCHS]
-    assert len(registry.all_cells()) == 24
+    assert registry.all_cells() == jregistry.all_cells()
+    assert len(registry.all_cells()) == 40
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS + ["din"])
@@ -57,8 +57,20 @@ def test_param_counts_match_reference(arch):
 
 @pytest.mark.parametrize("arch", GNN_ARCHS)
 def test_gnn_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="7.5"):
-        registry.get_arch(arch)
+    """Each GNN id resolves, raising nothing, to the reference's family,
+    shapes and configs, full and reduced (graphcast's d_feat and
+    edge_chunks too)."""
+    mod, jmod = registry.get_arch(arch), jregistry.get_arch(arch)
+    assert mod.ARCH_ID == arch and mod.FAMILY == jmod.FAMILY == "gnn"
+    assert ({k: dataclasses.asdict(v) for k, v in mod.SHAPES.items()}
+            == {k: dataclasses.asdict(v) for k, v in jmod.SHAPES.items()})
+    for reduced in (False, True):
+        got, want = mod.model_config(reduced), jmod.model_config(reduced)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    if arch == "graphcast":
+        for kw in ({"d_feat": 602}, {"d_feat": 100, "edge_chunks": 16}):
+            assert (dataclasses.asdict(mod.model_config(**kw))
+                    == dataclasses.asdict(jmod.model_config(**kw)))
 
 
 def test_unknown_arch_raises_key_error():
