@@ -4,7 +4,7 @@ its disk-resident index, its serving fleet, deployment and freshness, DIN
 serving, LM serving (OLMo-1B, Gemma-7B, H2O-Danube3-4B,
 Qwen1.5-MoE-A2.7B, Moonlight-16B-A3B) and training (OLMo-1B,
 Qwen1.5-MoE-A2.7B, DIN, and the GNN family: GraphCast, NequIP, MACE,
-DimeNet) on one NVIDIA GPU.
+DimeNet) on one NVIDIA GPU, and its sharded mesh on ranks that share it.
 
 Run from the root of a checkout, with one card:
 
@@ -13,7 +13,7 @@ Run from the root of a checkout, with one card:
 
 Phases, in the order they run (9 runs right after 4, on its corpus; 8
 right after 5, on its BAMG; 10 right after 8, on its index; 11, 12,
-then 13 last);
+13, then 14 last);
 any failed
 check raises and the script exits nonzero:
 
@@ -213,7 +213,36 @@ check raises and the script exits nonzero:
    translation (rtol 2e-4, atol 1e-4) and its forces rotating with the
    positions (rtol 1e-3, atol 1e-4).  Then `python -m
    repro_torch.launch.train --arch graphcast --steps 3` on the card.  No
-   hand-written kernel lies on the GNN path: every counter must stay 0.
+   hand-written kernel lies on the GNN path: every counter must stay 0;
+14. the sharded mesh, last: OLMo-1B's step 0 in f32 (TF32 off) on the
+   card in this process at B = 4 x 512 (loss and gradient global norm;
+   freed), then `launch.mesh.run_ranks` spawns 4 ranks on the card as a
+   (2, 2) ("data", "model") mesh joined over gloo (NCCL refuses two ranks
+   on one device; every collective takes the ranks' CUDA tensors).  They
+   run OLMo-1B at its published widths, depth cut to MESH_LAYERS, with
+   `lm_param_specs(..., fsdp_axis="data")` (FSDP over data x tensor
+   parallelism over model): step 0 in f32, whose loss must be within
+   rtol 1e-4 and gradient norm within rtol 1e-3 of the single card's,
+   then 4 bf16 steps through `make_train_step` (lr 1e-4, losses finite),
+   each logged with its ms over gloo (no figure of NCCL) and its
+   collectives by kind, count and bytes; peak GiB by rank.  The model
+   (step and f32 parameters) is saved from the mesh
+   (`train.checkpoint.save`: every rank gathers, rank 0 writes), then 2
+   new ranks restore it with `restore_sharded` into a (1, 2) mesh: each
+   leaf's layout-free digest must be the saved leaf's (its bits), and
+   the next batch's loss must be within rtol 1e-4 of the uninterrupted
+   run's.  On the (2, 2) mesh, DIN at its full config with row-sharded
+   tables: `sharded_lookup` of each rank's rows bitwise the single-card
+   lookup, the sharded `loss_fn` within rtol 1e-5 / atol 1e-6 of the
+   single-card loss, and the retrieval shortlist (`DIN.shortlist(mesh=)`:
+   the history's lookup on the mesh, `l2_topk` under "auto" over the
+   whole table) giving each rank's rows the single card's ids; and
+   `make_manual_dp_step(..., compression="int8_ef")` on a (4,) data mesh
+   at the reference test's config (`reduced`): after ten steps within
+   0.05 of `make_train_step`'s loss.  The shortlist is the mesh path's one
+   kernel: each rank's `l2_topk` counter must be nonzero (the single-card
+   comparison's launches not counted), every other counter, in each rank
+   and here, 0.
 
 The last lines are the script's time, the card's nvidia-smi line, one JSON
 object with every kernel's numbers, and `{"ok": true, "device": {...}}`.
@@ -2568,6 +2597,508 @@ def gnn_training(dev, card, reset_counts, read_counts) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The sharded mesh (phase 14): ranks spawned on the card, joined over gloo
+# ---------------------------------------------------------------------------
+MESH_B, MESH_S, MESH_STEPS = 4, 512, 4
+# OLMo-1B's depth on the mesh: its 16 layers took phase 14 to 159.5 s on
+# the card, and 8 to 122.6 s on a slower host (PERF §6), past the phase's
+# 120 s, so the depth is cut; the width is the published one
+MESH_LAYERS = 4
+
+
+def kernel_counters() -> dict:
+    """Each hand-written kernel's launch counter: {name: (wrapper,
+    attribute)}."""
+    from repro_torch.kernels.beam_fused import beam_hops
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.l2_topk import l2_topk
+    from repro_torch.kernels.pq_adc import pq_adc, pq_adc_rowwise
+
+    return {"pq_adc": (pq_adc, "launches"),
+            "pq_adc_rowwise": (pq_adc_rowwise, "launches"),
+            "beam_hops": (beam_hops, "launches"),
+            "beam_hops_l2": (beam_hops, "l2_launches"),
+            "l2_topk": (l2_topk, "launches"),
+            "flash_decode": (flash_decode, "launches")}
+
+
+def _olmo_mesh_setup(dev):
+    """(bf16 config, f32 config, batch_fn, AdamW config) of phase 14's
+    OLMo-1B: full width, MESH_LAYERS layers, B = MESH_B x MESH_S, lr
+    1e-4 as phase 12."""
+    import dataclasses
+
+    from repro_torch.configs import olmo_1b
+
+    cfg = dataclasses.replace(olmo_1b.model_config(), n_layers=MESH_LAYERS)
+    _, batch_fn, _, opt = _lm_setup(dev, cfg, MESH_B, MESH_S, MESH_STEPS)
+    return cfg, dataclasses.replace(cfg, dtype="float32"), batch_fn, opt
+
+
+def _olmo_params(cfg, dev):
+    import torch
+
+    from repro_torch.models.transformer import init_lm_params
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    return init_lm_params(cfg, gen, device=dev)
+
+
+def _digests(tree) -> dict:
+    """{path: a checksum of the leaf's bits that does not depend on its
+    layout}: the sum, mod 2^64, of each element's 32 bits times a hash of
+    its flat index in the full tensor, each rank over its block, summed
+    over the axes that shard the leaf (every rank of its mesh calls).
+    Two layouts of the same bits give the same digest."""
+    import torch
+
+    from repro_torch.utils.sharding import (all_reduce, coordinate, local,
+                                            sharded_dims)
+    from repro_torch.utils.tree import flatten_with_path
+
+    out = {}
+    for k, x in flatten_with_path(tree):
+        block = local(x).detach().contiguous()
+        shape = tuple(x.shape)
+        off = [0] * len(shape)
+        for d in range(len(shape)):
+            axes = [a for a, dd in sharded_dims(x) if dd == d]
+            i, n = coordinate(x.device_mesh, tuple(axes)) if axes else (0, 1)
+            off[d] = i * (shape[d] // n)
+        idx = torch.zeros(block.shape, dtype=torch.int64, device=block.device)
+        stride = 1
+        for d in reversed(range(len(shape))):
+            ar = (torch.arange(block.shape[d], device=block.device) + off[d])
+            view = [1] * len(shape)
+            view[d] = -1
+            idx = idx + (ar * stride).view(view)
+            stride *= shape[d]
+        bits = block.view(torch.int32).long() & 0xFFFFFFFF
+        dig = (bits * (((idx * 2654435761 + 97) % 4294967291) | 1)).sum()
+        axes = tuple(a for a, _ in sharded_dims(x))
+        if axes:
+            dig = all_reduce(dig, x.device_mesh, axes)
+        out[k] = int(dig)
+        del idx, bits, block
+    return out
+
+
+def _rank_device(mesh):
+    """This rank's device: its card (run_ranks set it), or the CPU."""
+    import torch
+
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def _all_ranks(mesh, values) -> list:
+    """[values of each rank, in rank order] (every rank calls)."""
+    import torch
+
+    from repro_torch.utils import sharding
+
+    x = torch.tensor([float(v) for v in values],
+                     device="cuda" if mesh.device_type == "cuda" else "cpu")
+    x = x[None]
+    for axis in reversed(sharding.axis_names(mesh)):
+        x = sharding.all_gather(x, mesh, axis, 0)
+    return x.tolist()
+
+
+def _mesh4_rank(mesh, ckpt_dir: str, t_spawn: float) -> dict:
+    """Phase 14 on each of the 4 ranks of a (2, 2) mesh: OLMo-1B (step 0
+    in f32, then MESH_STEPS bf16 steps, a save), DIN's lookup, loss and
+    retrieval shortlist, the compressed DP step on a (4,) mesh."""
+    import torch
+
+    from repro_torch.configs import din_cfg
+    from repro_torch.data.synthetic import din_batch
+    from repro_torch.models.recsys import din
+    from repro_torch.models.recsys.embedding import sharded_lookup
+    from repro_torch.models.transformer import (ShardCtx, lm_loss,
+                                                lm_param_specs)
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.trainer import (init_train_state, loss_and_grads,
+                                           make_train_step)
+    from repro_torch.utils import sharding
+    from repro_torch.utils.sharding import P, local, shard_leaf, shard_tree
+    from repro_torch.utils.tree import global_norm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = _rank_device(mesh)
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    counters = kernel_counters()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+
+    def counts():
+        return [getattr(fn, attr) for fn, attr in counters.values()]
+
+    out = {"rank": mesh.get_rank(), "start_s": time.time() - t_spawn}
+
+    # 14.1: OLMo-1B, FSDP x TP
+    cfg, cfg32, batch_fn, opt = _olmo_mesh_setup(dev)
+    ctx = ShardCtx(mesh=mesh)
+    specs = lm_param_specs(cfg, ctx, fsdp_axis="data")
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = shard_tree(_olmo_params(cfg, dev), specs, mesh)
+    if cuda:
+        torch.cuda.empty_cache()
+    sync()
+    out["init_s"] = time.perf_counter() - t0
+    b0 = batch_fn(0)
+
+    sharding.comm_log.reset()
+    t0 = time.perf_counter()
+    loss, _, g = loss_and_grads(
+        lambda p, b: lm_loss(p, cfg32, b["tokens"], b["labels"], ctx),
+        params, b0)
+    gn = global_norm(g)
+    sync()
+    out["f32"] = {"loss": float(loss), "grad_norm": float(gn),
+                  "ms": (time.perf_counter() - t0) * 1e3,
+                  "comm": sharding.comm_log.snapshot()}
+    del g
+
+    def loss_fn(p, b):
+        return lm_loss(p, cfg, b["tokens"], b["labels"], ctx)
+
+    state = init_train_state(params, opt)
+    step = make_train_step(loss_fn, opt)
+    out["steps"] = []
+    for i in range(MESH_STEPS):
+        b = batch_fn(i)
+        sharding.comm_log.reset()
+        sync()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        sync()
+        out["steps"].append({"loss": float(m["loss"]),
+                             "grad_norm": float(m["grad_norm"]),
+                             "ms": (time.perf_counter() - t0) * 1e3,
+                             "comm": sharding.comm_log.snapshot()})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
+    out["peak_gib"] = [r[0] for r in _all_ranks(mesh, [peak])]
+
+    # 14.2: save the model from this mesh (every rank gathers, rank 0
+    # writes); the next batch's loss, uninterrupted
+    model = {"step": state["step"], "params": state["params"]}
+    sync()
+    t0 = time.perf_counter()
+    ckpt.save(ckpt_dir, MESH_STEPS, model)
+    out["save_s"] = time.perf_counter() - t0
+    out["digests"] = _digests(model)
+    with torch.no_grad():
+        out["next_loss"] = float(loss_fn(state["params"],
+                                         batch_fn(MESH_STEPS))[0])
+    del state, params, model, step
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # 14.3: DIN at its full config, tables row-sharded over "model"
+    t0 = time.perf_counter()
+    dcfg = din_cfg.model_config()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    model = din.init_params(dcfg, gen, device=dev)
+    tree = model.param_tree()
+    sharded = shard_tree(tree, din.param_specs(dcfg, mesh), mesh)
+    keys = ("hist_items", "hist_cates", "hist_len", "target_item",
+            "target_cate", "label")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in zip(
+        keys, din_batch(0, 512, dcfg.seq_len, dcfg.n_items, dcfg.n_cates,
+                        seed=SEED))}
+    rows = sharded_lookup(sharded["item_emb"], batch["hist_items"], mesh,
+                          "model", ("data",))
+    mine = local(shard_leaf(mesh, P(("data",)), batch["hist_items"]))
+    same = torch.equal(rows, sharded_lookup(tree["item_emb"], mine))
+    with torch.no_grad():
+        l_mesh = float(din.loss_fn(sharded, dcfg, batch, mesh, "model",
+                                   ("data",)))
+        l_one = float(din.loss_fn(tree, dcfg, batch))
+    # the retrieval shortlist on the mesh (the history's lookup on the
+    # row-sharded table, `l2_topk` over the whole table on this rank's
+    # rows), against the single card's on the whole batch; the comparison's
+    # launches are taken off this rank's counts
+    smod = din.DIN(dcfg, sharded["item_emb"], sharded["cate_emb"],
+                   model.attn_w, model.attn_b, model.mlp_w, model.mlp_b)
+    with torch.no_grad():
+        sync()
+        t1 = time.perf_counter()
+        short = smod.shortlist(batch, dcfg.n_items, "auto", mesh, "model",
+                               ("data",))
+        sync()
+        t_short = time.perf_counter() - t1
+        c0 = counts()
+        one = local(shard_leaf(mesh, P(("data",)), model.shortlist(
+            batch, dcfg.n_items, "auto")))
+        compared = [b - a for a, b in zip(c0, counts())]
+    out["din"] = {"lookup_bitwise": bool(all(
+        r[0] for r in _all_ranks(mesh, [same]))), "loss_mesh": l_mesh,
+        "loss_one": l_one, "rows": tuple(rows.shape),
+        "shortlist_equal": bool(all(r[0] for r in _all_ranks(
+            mesh, [torch.equal(short, one)]))),
+        "shortlist": tuple(short.shape), "shortlist_ms": t_short * 1e3,
+        "items": dcfg.n_items,
+        "s": time.perf_counter() - t0}
+    del model, tree, sharded, smod
+
+    # 14.4: the compressed DP step on a (4,) data mesh of the same ranks
+    t0 = time.perf_counter()
+    out["dp"] = dict(_dp_compressed(dev), s=time.perf_counter() - t0)
+    out["launches"] = _all_ranks(mesh, [n - c for n, c in
+                                        zip(counts(), compared)])
+    return out
+
+
+def _dp_compressed(dev) -> dict:
+    """make_manual_dp_step(int8_ef) on a (world,) data mesh against
+    make_train_step on the whole batch: ten steps at the reference test's
+    config (named "c"; `reduced`), lr 1e-2."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.models.transformer import (LMConfig, ShardCtx,
+                                                init_lm_params, lm_loss)
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import (init_train_state,
+                                           make_manual_dp_step,
+                                           make_train_step)
+    from repro_torch.utils.tree import tree_map
+
+    dmesh = device_mesh((dist.get_world_size(),), ("data",), dev.type)
+    cfg = LMConfig(name="c", n_layers=2, d_model=32, n_heads=4, n_kv_heads=2,
+                   d_head=8, d_ff=64, vocab=64, remat="none", loss_chunks=2,
+                   dtype="float32")
+    opt = AdamWConfig(lr=1e-2, warmup_steps=5, total_steps=100)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = init_lm_params(cfg, gen, device=dev)
+
+    def loss_fn(p, b):
+        return lm_loss(p, cfg, b["tokens"], b["labels"], ShardCtx())
+
+    def batch(s):
+        t, l = lm_batch(s, 16, 8, cfg.vocab, seed=SEED)
+        return {"tokens": torch.from_numpy(t).to(dev),
+                "labels": torch.from_numpy(l).to(dev)}
+
+    ref, dp = make_train_step(loss_fn, opt, donate=False), \
+        make_manual_dp_step(loss_fn, opt, dmesh, compression="int8_ef")
+    s_ref = init_train_state(tree_map(torch.clone, params), opt)
+    s_dp = init_train_state(params, opt, ef=True)
+    for i in range(10):
+        s_ref, m_ref = ref(s_ref, batch(i))
+        s_dp, m_dp = dp(s_dp, batch(i))
+    return {"loss_ref": float(m_ref["loss"]), "loss_dp": float(m_dp["loss"])}
+
+
+def _mesh2_rank(mesh, ckpt_dir: str, t_spawn: float) -> dict:
+    """Phase 14.2 on each of the 2 ranks of a (1, 2) mesh: the (2, 2)
+    run's checkpoint restored with `restore_sharded` into this mesh's
+    layout, each leaf's digest (`_digests`) and the next batch's loss."""
+    import torch
+
+    from repro_torch.models.transformer import (ShardCtx, lm_loss,
+                                                lm_param_shapes,
+                                                lm_param_specs)
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.utils import sharding
+    from repro_torch.utils.sharding import ns
+    from repro_torch.utils.tree import flatten_with_path
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    start_s = time.time() - t_spawn
+    dev = _rank_device(mesh)
+    cfg, _, batch_fn, _ = _olmo_mesh_setup(dev)
+    ctx = ShardCtx(mesh=mesh)
+    specs = lm_param_specs(cfg, ctx, fsdp_axis="data")
+    shapes = lm_param_shapes(cfg)
+    like = {"step": torch.zeros((), dtype=torch.int32, device=dev),
+            "params": sharding.map_specs(
+                lambda s, shape: torch.empty((), device=dev), shapes,
+                shapes)}
+    shardings = {"step": None, "params": sharding.map_specs(
+        lambda s, _: ns(mesh, s), specs, shapes)}
+    t0 = time.perf_counter()
+    model, at = ckpt.restore_sharded(ckpt_dir, like, shardings)
+    t_restore = time.perf_counter() - t0
+    b = batch_fn(MESH_STEPS)
+    with torch.no_grad():
+        nxt = float(lm_loss(model["params"], cfg, b["tokens"], b["labels"],
+                            ctx)[0])
+    return {"step": at, "restore_s": t_restore, "start_s": start_s,
+            "digests": _digests(model),
+            "leaves": len(flatten_with_path(model)), "next_loss": nxt,
+            "wq_block": tuple(sharding.local(
+                model["params"]["layers"]["wq"]).shape)}
+
+
+def mesh_training(dev, card, reset_counts, read_counts) -> dict:
+    """Phase 14: the sharded mesh on one card.  A single-card f32 run of
+    OLMo-1B's step 0 first (freed before the ranks start), then 4 ranks
+    spawned as a (2, 2) mesh on the card, joined over gloo (NCCL refuses
+    two ranks on one device), then 2 ranks as a (1, 2) mesh that restore
+    the 4-rank checkpoint.  Returns the six kernels' launches in the
+    ranks (`l2_topk`'s on the sharded shortlist, the others 0) and in this
+    process (all 0)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models.transformer import lm_loss
+    from repro_torch.train.trainer import loss_and_grads
+    from repro_torch.utils.tree import global_norm
+
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke" / "mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    reset_counts()
+
+    # 14.1's reference: OLMo-1B's step 0 in f32 on the card, one process
+    _, cfg32, batch_fn, _ = _olmo_mesh_setup(dev)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = _olmo_params(cfg32, dev)
+    loss, _, g = loss_and_grads(
+        lambda p, b: lm_loss(p, cfg32, b["tokens"], b["labels"]), params,
+        batch_fn(0))
+    ref = {"loss": float(loss), "grad_norm": float(global_norm(g))}
+    del params, g
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=root) as rdv:
+        r4 = run_ranks(_mesh4_rank, (2, 2), device=dev.type,
+                       init_method=f"file://{rdv}/init", args=(
+                           str(root / "ckpt"), time.time()), timeout=400,
+                       threads=2)
+    t4 = time.perf_counter() - t0
+    gb = (root / "ckpt" / f"ckpt_{MESH_STEPS:08d}.npz").stat().st_size / 1e9
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=root) as rdv:
+        r2 = run_ranks(_mesh2_rank, (1, 2), device=dev.type,
+                       init_method=f"file://{rdv}/init", args=(
+                           str(root / "ckpt"), time.time()), timeout=240,
+                       threads=2)
+    t2 = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    parent = read_counts()
+
+    # the checks
+    f32 = r4["f32"]
+    if abs(f32["loss"] - ref["loss"]) > 1e-4 * abs(ref["loss"]):
+        raise AssertionError(f"mesh step 0 loss {f32['loss']} vs the single "
+                             f"card's {ref['loss']}: beyond rtol 1e-4")
+    if abs(f32["grad_norm"] - ref["grad_norm"]) > 1e-3 * ref["grad_norm"]:
+        raise AssertionError(f"mesh step 0 gradient norm {f32['grad_norm']} "
+                             f"vs the single card's {ref['grad_norm']}: "
+                             f"beyond rtol 1e-3")
+    losses = [s["loss"] for s in r4["steps"]]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"mesh bf16 losses not finite: {losses}")
+    differ = sorted(k for k in r4["digests"]
+                    if r2["digests"].get(k) != r4["digests"][k])
+    if differ or set(r2["digests"]) != set(r4["digests"]) \
+            or r2["step"] != MESH_STEPS:
+        raise AssertionError(f"restore: step {r2['step']}, leaves whose "
+                             f"bits differ from the saved ones: {differ}")
+    if abs(r2["next_loss"] - r4["next_loss"]) > 1e-4 * abs(r4["next_loss"]):
+        raise AssertionError(f"restored next loss {r2['next_loss']} vs the "
+                             f"uninterrupted run's {r4['next_loss']}: beyond "
+                             f"rtol 1e-4")
+    d = r4["din"]
+    if not d["lookup_bitwise"]:
+        raise AssertionError("DIN's sharded lookup differs from the single-"
+                             "card lookup")
+    if abs(d["loss_mesh"] - d["loss_one"]) > 1e-6 + 1e-5 * abs(d["loss_one"]):
+        raise AssertionError(f"DIN sharded loss {d['loss_mesh']} vs "
+                             f"{d['loss_one']}: beyond rtol 1e-5 / atol 1e-6")
+    if not d["shortlist_equal"]:
+        raise AssertionError("DIN's sharded shortlist differs from the "
+                             "single card's")
+    dp = r4["dp"]
+    if not abs(dp["loss_dp"] - dp["loss_ref"]) < 0.05:
+        raise AssertionError(f"compressed DP loss {dp['loss_dp']} vs "
+                             f"{dp['loss_ref']}: not within 0.05")
+    ranks = [dict(zip(kernel_counters(), map(int, row)))
+             for row in r4["launches"]]
+    # the sharded shortlist is the one mesh path that reaches a kernel
+    if (any(v for r in ranks for k, v in r.items() if k != "l2_topk")
+            or not all(r["l2_topk"] for r in ranks) or any(parent.values())):
+        raise AssertionError(f"phase 14's launches: ranks {ranks} (l2_topk "
+                             f"on the sharded shortlist only), parent "
+                             f"{parent} (none)")
+    kinds = sorted({k for s in [f32, *r4["steps"]]
+                    for k in s["comm"]["calls"]})
+
+    def comm(c):
+        return ", ".join(f"{k} {c['calls'][k]} ({c['bytes'][k] / 1e6:.1f} "
+                         f"MB)" for k in sorted(c["calls"]))
+
+    log(f"mesh: {dev.type} ranks over gloo, torch {torch.__version__}: "
+        f"{', '.join(kinds)} ran on the ranks' {dev.type} tensors (nothing "
+        f"moves through the host) | {card}")
+    log(f"mesh olmo-1b: (2, 2) mesh (data, model) of 4 ranks on one card, "
+        f"full width (d {cfg32.d_model}, ff {cfg32.d_ff}, vocab "
+        f"{cfg32.vocab}), {cfg32.n_layers} of 16 layers (depth cut: the "
+        f"phase took 159.5 s at 16, 122.6 s at 8 on a slower host, past "
+        f"its 120 s), FSDP over data x TP over model, B={MESH_B} x "
+        f"{MESH_S} | single-card f32 step 0 ({t_ref:.1f} s): loss "
+        f"{ref['loss']:.6f}, grad norm {ref['grad_norm']:.6f} | mesh f32 "
+        f"step 0: loss {f32['loss']:.6f} (rel "
+        f"{abs(f32['loss'] - ref['loss']) / abs(ref['loss']):.2e}), "
+        f"grad norm {f32['grad_norm']:.6f} (rel "
+        f"{abs(f32['grad_norm'] - ref['grad_norm']) / ref['grad_norm']:.2e}), "
+        f"{f32['ms']:.1f} ms over gloo | rank init {r4['init_s']:.1f} s | "
+        f"{card}")
+    for i, s in enumerate(r4["steps"]):
+        log(f"  mesh bf16 step {i}: loss {s['loss']:.4f}, grad norm "
+            f"{s['grad_norm']:.4f}, {s['ms']:.1f} ms on rank 0 (gloo on one "
+            f"card, not a figure of NCCL) | collectives on rank 0: "
+            f"{comm(s['comm'])}")
+    log(f"  mesh f32 step 0 collectives on rank 0: {comm(f32['comm'])} | "
+        f"peak GiB by rank: "
+        + ", ".join(f"{v:.2f}" for v in r4["peak_gib"]) + f" | {card}")
+    log(f"mesh elastic: saved step {MESH_STEPS}'s model ({gb:.2f} GB npz) "
+        f"from the (2, 2) mesh in {r4['save_s']:.1f} s, restored into a "
+        f"(1, 2) mesh of 2 ranks in {r2['restore_s']:.1f} s: {r2['leaves']} "
+        f"leaves, each leaf's bits the saved ones (layout-free digests "
+        f"equal), wq block {r2['wq_block']} | next loss "
+        f"{r2['next_loss']:.6f} vs "
+        f"uninterrupted {r4['next_loss']:.6f} (rel "
+        f"{abs(r2['next_loss'] - r4['next_loss']) / abs(r4['next_loss']):.2e})"
+        f" | spawns: 4 ranks {t4:.1f} s (rank 0 started its work "
+        f"{r4['start_s']:.1f} s in), 2 ranks {t2:.1f} s (at "
+        f"{r2['start_s']:.1f} s)")
+    log(f"mesh din: full config, tables row-sharded over model: lookup of "
+        f"each rank's rows {d['rows']} bitwise the single-card lookup; loss "
+        f"{d['loss_mesh']:.7f} vs {d['loss_one']:.7f}; retrieval shortlist "
+        f"over all {d['items']:,} items, each rank's {d['shortlist']} ids "
+        f"the single card's, {d['shortlist_ms']:.1f} ms on rank 0, l2_topk "
+        f"launches by rank {[r['l2_topk'] for r in ranks]} ({d['s']:.1f} s) "
+        f"| "
+        f"compressed DP ({dp['s']:.1f} s) "
+        f"(int8_ef, (4,) data mesh, config c, reduced): loss after 10 steps "
+        f"{dp['loss_dp']:.5f} vs make_train_step {dp['loss_ref']:.5f} "
+        f"(|diff| {abs(dp['loss_dp'] - dp['loss_ref']):.5f} < 0.05)")
+    log(f"phase 14 took {time.perf_counter() - t_phase:.1f} s | {card}")
+    return {"ranks": ranks, "parent": parent}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -2645,13 +3176,7 @@ def main(argv=None) -> int:
                 + torch.arange(m, device=dev)) * k + codes.long()) * 4
         return sector_bytes(off if valid is None else off[valid])
 
-    # each kernel's launch counter: (wrapper, attribute)
-    counters = {"pq_adc": (pq_adc, "launches"),
-                "pq_adc_rowwise": (pq_adc_rowwise, "launches"),
-                "beam_hops": (beam_hops, "launches"),
-                "beam_hops_l2": (beam_hops, "l2_launches"),
-                "l2_topk": (l2_topk, "launches"),
-                "flash_decode": (flash_decode, "launches")}
+    counters = kernel_counters()
 
     def reset_counts():
         for fn, attr in counters.values():
@@ -3506,6 +4031,9 @@ def main(argv=None) -> int:
     # ---- 13. the GNN family trained on the card -----------------------------
     gnn_launches = gnn_training(dev, card, reset_counts, read_counts)
 
+    # ---- 14. the sharded mesh: ranks on the card over gloo -------------------
+    mesh_launches = mesh_training(dev, card, reset_counts, read_counts)
+
     # ---- result lines -------------------------------------------------------
     meta = {
         "pq_adc": ("src/repro_torch/csrc/pq_adc.cu",
@@ -3549,6 +4077,9 @@ def main(argv=None) -> int:
     log("phase 13 launches, by part (not in the kernels line's launches; "
         "no hand-written kernel lies on the GNN path): "
         + json.dumps(gnn_launches))
+    log("phase 14 launches, in each rank and in this process (not in the "
+        "kernels line's launches; on the mesh path only the sharded DIN "
+        "shortlist reaches a kernel, l2_topk): " + json.dumps(mesh_launches))
     def on_card(t):
         if t is None:
             return None

@@ -5,5 +5,5 @@ segment-op message passing.
 Submodules are imported lazily (import repro_torch.models.gnn.<name>) to
 keep partial builds importable.  `ring_gather` (the mesh's distributed
 row gather and scatter behind the models' `gather_fn` / `scatter_fn`
-hooks) waits for the sharded slice (ROADMAP Queue 1 item 7.3).
+hooks) waits for mesh C (ROADMAP Queue 1 item 3).
 """

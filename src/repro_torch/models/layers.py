@@ -2,8 +2,9 @@
 `repro.models.layers` that DIN and the LMs need, training included).
 
 Norms and RoPE run in f32 and cast back to the input's dtype, as in the
-reference.  `constrain` (a sharding constraint) waits for the sharded
-slice (ROADMAP Queue 1 item 7.3).
+reference.  Sharding constraints are `ShardCtx.constrain`
+(`models.transformer`); `softmax_xent_chunked` takes logits sharded on
+the vocabulary (`vocab_shard`).
 """
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from ..utils.sharding import all_reduce, reduce_from
 
 
 # ---------------------------------------------------------------------------
@@ -126,7 +129,7 @@ def embed_init(generator: torch.Generator, vocab: int, d: int,
 # Losses
 # ---------------------------------------------------------------------------
 def softmax_xent_chunked(logits_fn, x: torch.Tensor, labels: torch.Tensor,
-                         n_chunks: int = 8) -> torch.Tensor:
+                         n_chunks: int = 8, vocab_shard=None) -> torch.Tensor:
     """Mean cross-entropy, looped over `n_chunks` sequence chunks so the
     live logits tensor is (B, S/n_chunks, V) instead of (B, S, V).
 
@@ -135,6 +138,14 @@ def softmax_xent_chunked(logits_fn, x: torch.Tensor, labels: torch.Tensor,
     its gold logit is summed in chunk order under a non-reentrant
     checkpoint (the reference's `jax.checkpoint(body)`), so no chunk's
     logits outlive it in the backward; the total is divided by B * S.
+
+    vocab_shard=(mesh, axis): logits_fn gives this rank's block of the
+    vocabulary (rank i of `axis` holds columns [i V_l, (i + 1) V_l)).
+    The log-sum-exp is a max over the axis (held out of the gradient),
+    then the sum of exp(logit - max) over it; the gold logit (the
+    reference's take_along_axis on the sharded dim) is a masked local
+    pick summed over the axis: B x s floats cross, not the chunk's
+    (B, s, V) logits.  Every rank of the axis returns the same value.
     """
     b, s, _ = x.shape
     if s % n_chunks:
@@ -144,8 +155,11 @@ def softmax_xent_chunked(logits_fn, x: torch.Tensor, labels: torch.Tensor,
 
     def body(xi, li):
         logits = logits_fn(xi).float()                    # (B, cs, V)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, li[..., None].long())[..., 0]
+        if vocab_shard is None:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, li[..., None].long())[..., 0]
+        else:
+            lse, gold = _sharded_lse_gold(logits, li, *vocab_shard)
         return torch.sum(lse - gold)
 
     total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -154,3 +168,18 @@ def softmax_xent_chunked(logits_fn, x: torch.Tensor, labels: torch.Tensor,
         total = total + checkpoint(body, x[:, sl], labels[:, sl],
                                    use_reentrant=False)
     return total / (b * s)
+
+
+def _sharded_lse_gold(logits: torch.Tensor, labels: torch.Tensor, mesh,
+                      axis: str):
+    """(logsumexp, gold logit) over a vocabulary whose block (..., V_l)
+    this rank of `axis` holds."""
+    v_local = logits.shape[-1]
+    m = all_reduce(logits.detach().amax(-1), mesh, axis, op="max")
+    lse = m + torch.log(reduce_from(
+        torch.exp(logits - m[..., None]).sum(-1), mesh, axis))
+    loc = labels.long() - mesh.get_local_rank(axis) * v_local
+    ok = (loc >= 0) & (loc < v_local)
+    pick = torch.gather(logits, -1, loc.clamp(0, v_local - 1)[..., None])
+    gold = reduce_from(torch.where(ok, pick[..., 0], 0.0), mesh, axis)
+    return lse, gold

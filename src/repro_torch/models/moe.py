@@ -15,8 +15,7 @@ outputs in slot order, with no float atomics, so that two runs on the
 card give the same bits.
 
 Expert parallelism over a mesh (`_moe_group_local`, `_moe_local` and
-their all_to_all exchange) waits for the sharded slice (ROADMAP Queue 1
-item 7.3).
+their all_to_all exchange) waits for mesh B (ROADMAP Queue 1 item 2).
 """
 from __future__ import annotations
 
@@ -144,8 +143,8 @@ def moe_ffn(x: torch.Tensor, params: dict, cfg: MoEConfig, *, mesh=None,
     if mesh is not None:
         raise NotImplementedError(
             "moe_ffn over a mesh (expert parallelism with an all_to_all "
-            "exchange) waits for the sharded slice (ROADMAP Queue 1 item "
-            "7.3); pass mesh=None")
+            "exchange) waits for mesh B (ROADMAP Queue 1 item 2, the second "
+            "part of 7.3); pass mesh=None")
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     gates, eids, aux = route(xt, params["router"], cfg)

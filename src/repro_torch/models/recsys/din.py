@@ -29,8 +29,14 @@ reference's stable BCE on f32 logits, computed from such a tree through
 the module's forward (`torch.func.functional_call` on a skeleton with
 meta tensors), so gradients reach the tree's leaves.  The tables' and
 MLPs' `requires_grad` is the constructor's `trainable` (off: serving).
-`param_specs` (the row-sharded tables) waits for the sharded slice
-(ROADMAP Queue 1 item 7.3).
+
+Over a `DeviceMesh` (`param_specs`): the tables are row-sharded over
+`model_axis`, the MLPs replicated; `forward_scores` and `loss_fn` take
+`mesh` / `model_axis` / `batch_axes` as the reference's do: each rank
+scores its rows of the batch (split over `batch_axes`) with
+`embedding.sharded_lookup` on its block of the tables, and the loss is
+the global batch's mean on every rank.  `shortlist` takes them for its
+history lookup; its candidates span the whole (gathered) table.
 """
 from __future__ import annotations
 
@@ -42,6 +48,9 @@ from torch import nn
 from ..._device import resolve_device, to_device
 from ...core.distances import f32_matmul
 from ...kernels.l2_topk import l2_topk
+from ...utils import sharding
+from ...utils.sharding import P
+from ...utils.tree import tree_map
 from ..layers import dense_init
 from .embedding import sharded_lookup
 
@@ -91,13 +100,37 @@ def _masked_mean(e: torch.Tensor, hist_len: torch.Tensor) -> torch.Tensor:
     return pooled / hist_len.clamp_min(1)[:, None].to(pooled.dtype)
 
 
+def param_specs(cfg: DINConfig, mesh, model_axis="model") -> dict:
+    """Spec tree of `DIN.param_tree` (the reference's): the tables
+    P(model_axis, None), the MLPs replicated; all None without a mesh."""
+    n_attn, n_mlp = len(cfg.attn_mlp) + 1, len(cfg.mlp) + 1
+    if mesh is None:
+        rep = tab = None
+    else:
+        rep, tab = P(), P(model_axis, None)
+    return {"item_emb": tab, "cate_emb": tab,
+            "attn": {"w": [rep] * n_attn, "b": [rep] * n_attn},
+            "mlp": {"w": [rep] * n_mlp, "b": [rep] * n_mlp}}
+
+
+def _rows(bt: dict, mesh, batch_axes) -> dict:
+    """This rank's rows of each array of a global batch over `batch_axes`
+    (all of them without a mesh or batch axes)."""
+    if mesh is None or not batch_axes:
+        return bt
+    return {k: sharding.local(sharding.shard_leaf(mesh, P(tuple(batch_axes)),
+                                                  v)) for k, v in bt.items()}
+
+
 def _bag_mean(table: torch.Tensor, ids: torch.Tensor,
-              valid: torch.Tensor) -> torch.Tensor:
+              valid: torch.Tensor, mesh=None,
+              model_axis=None) -> torch.Tensor:
     """The reference's `embedding_bag(..., mode="mean")` over contiguous
     bags: row b pools table[ids[b, s]] where valid[b, s] and ids >= 0,
     divided by max(count, 1); a masked sum, in a fixed order."""
     ok = valid & (ids >= 0)
-    rows = torch.where(ok[..., None], sharded_lookup(table, ids), 0.0)
+    rows = torch.where(ok[..., None],
+                       sharded_lookup(table, ids, mesh, model_axis), 0.0)
     return rows.sum(1) / ok.sum(1).clamp_min(1)[:, None].to(rows.dtype)
 
 
@@ -148,9 +181,11 @@ class DIN(nn.Module):
         return {k: to_device(batch[k], self.device) for k in BATCH_KEYS
                 if k in batch}
 
-    def _behavior_embed(self, items, cates) -> torch.Tensor:
-        return torch.cat([sharded_lookup(self.item_emb, items),
-                          sharded_lookup(self.cate_emb, cates)], -1)
+    def _behavior_embed(self, items, cates, mesh=None,
+                        model_axis=None) -> torch.Tensor:
+        return torch.cat(
+            [sharded_lookup(self.item_emb, items, mesh, model_axis),
+             sharded_lookup(self.cate_emb, cates, mesh, model_axis)], -1)
 
     def target_attention(self, e_hist: torch.Tensor, e_tgt: torch.Tensor,
                          hist_len: torch.Tensor) -> torch.Tensor:
@@ -168,20 +203,29 @@ class DIN(nn.Module):
             w = torch.where(mask, w, 0.0)
             return torch.einsum("bs,bsd->bd", w, e_hist)
 
-    def forward_scores(self, batch: dict) -> torch.Tensor:
+    def forward_scores(self, batch: dict, mesh=None, model_axis="model",
+                       batch_axes=()) -> torch.Tensor:
         """CTR logits (B,).  batch: hist_items / hist_cates (B, S),
         hist_len (B,), target_item / target_cate (B,), as numpy arrays or
-        tensors."""
-        bt = self._batch(batch)
+        tensors.  With a mesh: the module holds this rank's blocks of the
+        tables (rows over `model_axis`), and the logits are this rank's
+        rows of the batch over `batch_axes`."""
+        bt = _rows(self._batch(batch), mesh, batch_axes)
+        if mesh is None:
+            model_axis = None
         hist_len = bt["hist_len"]
-        e_hist = self._behavior_embed(bt["hist_items"], bt["hist_cates"])
-        e_tgt = self._behavior_embed(bt["target_item"], bt["target_cate"])
+        e_hist = self._behavior_embed(bt["hist_items"], bt["hist_cates"],
+                                      mesh, model_axis)
+        e_tgt = self._behavior_embed(bt["target_item"], bt["target_cate"],
+                                     mesh, model_axis)
         interest = self.target_attention(e_hist, e_tgt, hist_len)
         valid = (torch.arange(e_hist.shape[1], device=self.device)[None, :]
                  < hist_len[:, None])
-        pooled = torch.cat([_bag_mean(self.item_emb, bt["hist_items"], valid),
-                            _bag_mean(self.cate_emb, bt["hist_cates"], valid)],
-                           -1)
+        pooled = torch.cat(
+            [_bag_mean(self.item_emb, bt["hist_items"], valid, mesh,
+                       model_axis),
+             _bag_mean(self.cate_emb, bt["hist_cates"], valid, mesh,
+                       model_axis)], -1)
         x = torch.cat([interest, e_tgt, pooled], -1)
         with f32_matmul():
             return _mlp(self.mlp_w, self.mlp_b, x)[..., 0]
@@ -196,15 +240,24 @@ class DIN(nn.Module):
         return _masked_mean(e_hist, bt["hist_len"])
 
     def shortlist(self, batch: dict, n_candidates: int,
-                  backend: str = "auto") -> torch.Tensor:
+                  backend: str = "auto", mesh=None, model_axis="model",
+                  batch_axes=()) -> torch.Tensor:
         """Stage (a) of `retrieval_step`: the min(rerank_k, n_candidates)
         first rows of the item table nearest (squared L2) to the history's
-        mean item embedding, (B, kk) int64 item ids, nearest first."""
-        bt = self._batch(batch)
-        q = _masked_mean(sharded_lookup(self.item_emb, bt["hist_items"]),
-                         bt["hist_len"])
-        cand = (self.item_emb if n_candidates == self.item_emb.shape[0]
-                else self.item_emb[:n_candidates])
+        mean item embedding, (B, kk) int64 item ids, nearest first.
+
+        With a mesh (the tables DTensors laid out by `param_specs`): the
+        history's lookup is `sharded_lookup` on this rank's rows of the
+        batch over `batch_axes`, as the reference's `retrieval_step` takes
+        it, and the candidates span the whole table, gathered on every
+        rank; the result is this rank's rows."""
+        bt = _rows(self._batch(batch), mesh, batch_axes)
+        q = _masked_mean(sharded_lookup(
+            self.item_emb, bt["hist_items"], mesh,
+            model_axis if mesh is not None else None), bt["hist_len"])
+        table = sharding.full_tensor(self.item_emb)
+        cand = (table if n_candidates == table.shape[0]
+                else table[:n_candidates])
         kk = min(self.cfg.rerank_k, n_candidates)
         _, short = l2_topk(q, cand, kk, backend=backend)
         return short.long().clamp(0, n_candidates - 1)
@@ -313,14 +366,32 @@ def _module_names(params: dict) -> dict:
     return out
 
 
-def loss_fn(params: dict, cfg: DINConfig, batch: dict) -> torch.Tensor:
+def loss_fn(params: dict, cfg: DINConfig, batch: dict, mesh=None,
+            model_axis="model", batch_axes=()) -> torch.Tensor:
     """Mean binary cross-entropy of the CTR logits against batch["label"]
     (the reference's stable form on f32 logits: max(z, 0) - z y +
     log1p(exp(-|z|))), from a parameter tree in the reference's layout
     (`DIN.param_tree`, or the reference's own tree as tensors) through
-    the module's forward; differentiable in the tree's leaves."""
+    the module's forward; differentiable in the tree's leaves.
+
+    With a mesh: the tree's leaves are laid out by `param_specs`, the
+    batch is global, and every rank returns the global mean: its rows'
+    sum over the batch, added over `batch_axes`.  Gradients reach each
+    leaf's block (summed over `batch_axes`, whose ranks saw other
+    rows)."""
+    kw = {}
+    if mesh is not None:
+        params = tree_map(
+            lambda p: sharding.compute_view(p, mesh, tuple(batch_axes)),
+            params)
+        kw = dict(mesh=mesh, model_axis=model_axis, batch_axes=batch_axes)
     logits = torch.func.functional_call(_skeleton(cfg), _module_names(params),
-                                        (batch,)).float()
-    y = to_device(batch["label"], logits.device).float()
-    return torch.mean(torch.maximum(logits, torch.zeros_like(logits))
-                      - logits * y + torch.log1p(torch.exp(-logits.abs())))
+                                        (batch,), kw).float()
+    y = _rows({"y": to_device(batch["label"], logits.device)}, mesh,
+              batch_axes)["y"].float()
+    bce = (torch.maximum(logits, torch.zeros_like(logits)) - logits * y
+           + torch.log1p(torch.exp(-logits.abs())))
+    if mesh is None or not batch_axes:
+        return torch.mean(bce)
+    return sharding.reduce_from(torch.sum(bce) / len(batch["label"]), mesh,
+                                tuple(batch_axes))

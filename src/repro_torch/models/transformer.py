@@ -27,10 +27,27 @@ config's remat: "none", "full" (a non-reentrant checkpoint a layer),
 group of L / outer layers, outer the largest divisor of L at most
 sqrt(L)).  The loss loops over sequence chunks (`softmax_xent_chunked`).
 
-Sharded serving and training (`ShardCtx`, `lm_param_specs`,
-`cache_specs`, `_decode_seqsharded`: kv_mode "seq" / "seq_all") wait for
-the sharded slice (ROADMAP Queue 1 item 7.3); no entry point takes a
-`ctx`.
+Sharded training (`ShardCtx`, `lm_param_specs`): `lm_loss`,
+`forward_hidden`, `layer_forward` and `lm_head_logits` take `ctx`; with
+`ctx.mesh` None (the default) they are the single-device path above,
+unchanged.  Under a `DeviceMesh` ("data", "model") every rank runs them
+on its blocks: the batch's rows over the batch axes, Megatron tensor
+parallelism over "model" (column-parallel wq / wk / wv / w_gate / w_in
+and head, row-parallel wo / w_out, each rank with n_heads / tp query and
+n_kv_heads / tp kv heads), the vocab-parallel embedding (a masked local
+take plus a sum over "model") and a vocab-parallel loss
+(`softmax_xent_chunked`'s `vocab_shard`).  Parameters are
+`utils.sharding` leaves laid out by `lm_param_specs`: a weight FSDP-
+sharded over a batch axis is gathered where it is used, a stacked layer
+weight sharded on its layer dim one layer at a time inside the layer
+loop (`utils.sharding.layer_views`), as GSPMD gathers inside the
+reference's scan; the reference's `constrain` points are where these
+collectives leave each activation (q / k / v and the FFN hidden on local
+heads, the residual stream whole on every "model" rank, logits on local
+vocab).  Gradients reach each leaf's block through the collectives'
+backward (`utils.sharding.compute_view`).  Sequence-sharded decode
+(kv_mode "seq" / "seq_all", `cache_specs`) and MoE over a mesh wait for
+mesh B (ROADMAP Queue 1 item 2); serving takes no `ctx`.
 """
 from __future__ import annotations
 
@@ -44,6 +61,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from .._device import resolve_device, to_device
 from ..core.distances import f32_matmul
+from ..utils import sharding
+from ..utils.sharding import P, copy_to, reduce_from
 from .attention import causal_attention, decode_attention_local
 from .layers import (act_fn, apply_norm, apply_rope, dense_init, embed_init,
                      norm_param, softmax_xent_chunked)
@@ -108,6 +127,90 @@ class LMConfig:
             ffn = 3 * d * self.d_ff
         emb = v * d * (1 if self.tie_embeddings else 2)
         return l * (attn + ffn) + emb
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """Mesh context handed to model code; None mesh = the single-device
+    path.  `mesh` is a `DeviceMesh` whose dims carry the reference's axis
+    names; specs are `utils.sharding.P`."""
+    mesh: Optional[Any] = None
+    model_axis: Optional[str] = "model"
+
+    @property
+    def batch_axes(self) -> tuple:
+        if self.mesh is None:
+            return ()
+        names = sharding.axis_names(self.mesh)
+        return tuple(a for a in ("pod", "data") if a in names)
+
+    @property
+    def tp(self) -> int:
+        if self.mesh is None or self.model_axis is None:
+            return 1
+        return sharding.axis_size(self.mesh, self.model_axis)
+
+    def batch_spec(self, *rest) -> Optional[P]:
+        if self.mesh is None:
+            return None
+        ba = self.batch_axes
+        return P(ba if ba else None, *rest)
+
+    def axis_prod(self, axes) -> int:
+        if axes is None:
+            return 1
+        axes = (axes,) if isinstance(axes, str) else axes
+        n = 1
+        for a in axes:
+            n *= sharding.axis_size(self.mesh, a)
+        return n
+
+    def sanitize(self, spec: Optional[P], shape) -> Optional[P]:
+        """Drop sharding on any dim whose size is not divisible by its mesh
+        axes (batch=1 serving cells, tiny decode token counts, ...)."""
+        if self.mesh is None or spec is None:
+            return spec
+        dims = list(spec) + [None] * (len(shape) - len(spec))
+        out = []
+        for d, s in zip(dims, shape):
+            out.append(d if d is None or (s >= self.axis_prod(d)
+                                          and s % self.axis_prod(d) == 0)
+                       else None)
+        return P(*out)
+
+    def constrain(self, x, spec: Optional[P]):
+        """`x` (a plain tensor: the same full value on every rank; or a
+        DTensor) laid out as the sanitized `spec`: a DTensor of this
+        rank's block, or the full tensor where the spec replicates it (the
+        reference's with_sharding_constraint, for inputs: not
+        differentiable; a no-op unsharded).  Inside the model the
+        collectives fix each activation's layout (module docstring)."""
+        if self.mesh is None or spec is None:
+            return x
+        return sharding.shard_leaf(self.mesh, self.sanitize(spec, x.shape),
+                                   x)
+
+    def view(self, p):
+        """Parameter `p`'s block for this rank's compute
+        (`utils.sharding.compute_view` over the batch axes)."""
+        return sharding.compute_view(p, self.mesh, self.batch_axes)
+
+    def batch_rows(self, x: torch.Tensor) -> tuple[torch.Tensor, int]:
+        """(this rank's rows of the global batch `x`, the number of ranks
+        that hold the same rows: the batch axes that the sanitized batch
+        spec drops)."""
+        spec = self.sanitize(self.batch_spec(*([None] * (x.dim() - 1))),
+                             x.shape)
+        return (sharding.local(self.constrain(x, spec)),
+                self.axis_prod(self.batch_axes) // self.axis_prod(spec[0]))
+
+
+def _tp(ctx: Optional[ShardCtx]) -> int:
+    return 1 if ctx is None else ctx.tp
+
+
+def _sharded(ctx: Optional[ShardCtx]) -> bool:
+    return ctx is not None and ctx.mesh is not None
 
 
 # ---------------------------------------------------------------------------
@@ -189,6 +292,97 @@ def params_from_jax(tree: dict, cfg: LMConfig, device=None,
     return conv(tree)
 
 
+def lm_param_shapes(cfg: LMConfig) -> dict:
+    """The shapes of `init_lm_params`' tree (tuples; None where the tree
+    holds None), without drawing it."""
+    d, l = cfg.d_model, cfg.n_layers
+    norm = None if cfg.norm == "nonparam_ln" else (l, d)
+    layers: dict[str, Any] = {
+        "attn_norm": norm, "mlp_norm": norm, "wq": (l, d, cfg.q_dim),
+        "wk": (l, d, cfg.kv_dim), "wv": (l, d, cfg.kv_dim),
+        "wo": (l, cfg.q_dim, d)}
+    if cfg.moe:
+        m = cfg.moe
+        e = m.n_experts_padded
+        layers.update(router=(l, d, m.n_experts),
+                      we_gate=(l, e, d, m.d_ff_expert),
+                      we_in=(l, e, d, m.d_ff_expert),
+                      we_out=(l, e, m.d_ff_expert, d))
+        if m.n_shared:
+            layers.update(ws_gate=(l, d, m.d_ff_shared),
+                          ws_in=(l, d, m.d_ff_shared),
+                          ws_out=(l, m.d_ff_shared, d))
+    else:
+        layers.update(w_gate=(l, d, cfg.d_ff), w_in=(l, d, cfg.d_ff),
+                      w_out=(l, cfg.d_ff, d))
+    out = {"embed": (cfg.vocab, d),
+           "final_norm": None if cfg.norm == "nonparam_ln" else (d,),
+           "layers": layers}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = (d, cfg.vocab)
+    return out
+
+
+def lm_param_specs(cfg: LMConfig, ctx: ShardCtx,
+                   fsdp_axis: Optional[str] = None) -> dict:
+    """Spec tree (`utils.sharding.P`) matching init_lm_params output (the
+    reference's, leaf for leaf; all None without a mesh).
+
+    fsdp_axis (training): additionally shard every weight over that axis on
+    its first free divisible dim -- 2D (FSDP x TP) parameter layout; the
+    forward gathers each weight where it is used (a stacked layer weight
+    one layer at a time) and the backward reduce-scatters its gradient,
+    and the AdamW state inherits the fully-sharded layout."""
+    shapes = lm_param_shapes(cfg)
+    if ctx.mesh is None:
+        return sharding.map_specs(lambda *_: None, shapes, shapes)
+    mdl = ctx.model_axis
+    layers: dict[str, Any] = {
+        "attn_norm": None if cfg.norm == "nonparam_ln" else P(None, None),
+        "mlp_norm": None if cfg.norm == "nonparam_ln" else P(None, None),
+        "wq": P(None, None, mdl),
+        "wk": P(None, None, mdl),
+        "wv": P(None, None, mdl),
+        "wo": P(None, mdl, None),
+    }
+    if cfg.moe:
+        layers["router"] = P(None, None, None)
+        layers["we_gate"] = P(None, mdl, None, None)
+        layers["we_in"] = P(None, mdl, None, None)
+        layers["we_out"] = P(None, mdl, None, None)
+        if cfg.moe.n_shared:
+            layers["ws_gate"] = P(None, None, mdl)
+            layers["ws_in"] = P(None, None, mdl)
+            layers["ws_out"] = P(None, mdl, None)
+    else:
+        layers["w_gate"] = P(None, None, mdl)
+        layers["w_in"] = P(None, None, mdl)
+        layers["w_out"] = P(None, mdl, None)
+    specs = {
+        "embed": P(mdl, None),
+        "final_norm": None if cfg.norm == "nonparam_ln" else P(None),
+        "layers": layers,
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P(None, mdl)
+    if fsdp_axis is not None:
+        ax_size = ctx.axis_prod(fsdp_axis)
+
+        def add_fsdp(spec, shape):
+            if spec is None or len(shape) < 2:
+                return spec
+            dims = list(spec) + [None] * (len(shape) - len(spec))
+            for i, d in enumerate(dims):
+                if d is None and shape[i] % ax_size == 0 \
+                        and shape[i] >= ax_size:
+                    dims[i] = fsdp_axis
+                    return P(*dims)
+            return spec
+
+        specs = sharding.map_specs(add_fsdp, specs, shapes)
+    return specs
+
+
 def compute_cast(tree, dtype: torch.dtype):
     """Cast every floating tensor of a parameter tree to `dtype` (no copy
     where it already is); differentiable, so gradients reach f32 master
@@ -213,54 +407,99 @@ def _unstack(layers: dict) -> list[dict]:
 # Embedding, one layer, head
 # ---------------------------------------------------------------------------
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
-                 cfg: LMConfig) -> torch.Tensor:
-    """(V, d) x (B, S) -> (B, S, d) in the compute dtype."""
-    out = embed[tokens.long()].to(cfg.compute_dtype)
+                 cfg: LMConfig, ctx: Optional[ShardCtx] = None
+                 ) -> torch.Tensor:
+    """(V, d) x (B, S) -> (B, S, d) in the compute dtype.  Under a mesh
+    with tp > 1, `embed` is this rank's vocab block (V / tp, d) and the
+    lookup is Megatron's vocab-parallel one: a masked local take summed
+    over "model" (the reference's shard_map body)."""
+    if _tp(ctx) == 1:
+        out = embed[tokens.long()].to(cfg.compute_dtype)
+    else:
+        v_local = embed.shape[0]
+        loc = tokens.long() - ctx.mesh.get_local_rank(ctx.model_axis) * v_local
+        ok = (loc >= 0) & (loc < v_local)
+        rows = torch.where(ok[..., None], embed[loc.clamp(0, v_local - 1)],
+                           0.0)
+        out = reduce_from(rows, ctx.mesh, ctx.model_axis).to(
+            cfg.compute_dtype)
     if cfg.embed_scale:
         out = out * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.compute_dtype,
                                  device=out.device)
     return out
 
 
-def _attn_qkv(x, lp, cfg: LMConfig, positions):
+def _to_model(h, ctx):
+    """Megatron's f before a column-parallel product (tp > 1)."""
+    return h if _tp(ctx) == 1 else copy_to(h, ctx.mesh, ctx.model_axis)
+
+
+def _from_model(y, ctx):
+    """Megatron's g after a row-parallel product (tp > 1)."""
+    return y if _tp(ctx) == 1 else reduce_from(y, ctx.mesh, ctx.model_axis)
+
+
+def _attn_qkv(x, lp, cfg: LMConfig, positions, ctx=None):
     b, s, _ = x.shape
-    h = apply_norm(cfg.norm, x, lp["attn_norm"])
-    q = (h @ lp["wq"].to(h.dtype)).reshape(b, s, cfg.n_heads, cfg.d_head)
-    k = (h @ lp["wk"].to(h.dtype)).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
-    v = (h @ lp["wv"].to(h.dtype)).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    tp = _tp(ctx)
+    hq, hkv = cfg.n_heads // tp, cfg.n_kv_heads // tp
+    h = _to_model(apply_norm(cfg.norm, x, lp["attn_norm"]), ctx)
+    q = (h @ lp["wq"].to(h.dtype)).reshape(b, s, hq, cfg.d_head)
+    k = (h @ lp["wk"].to(h.dtype)).reshape(b, s, hkv, cfg.d_head)
+    v = (h @ lp["wv"].to(h.dtype)).reshape(b, s, hkv, cfg.d_head)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def _ffn(x, lp, cfg: LMConfig):
+def _ffn(x, lp, cfg: LMConfig, ctx=None):
     """One layer's FFN: the dense gated MLP, or the MoE block.  Returns
     (out, aux loss f32 scalar; 0 for a dense layer)."""
     h = apply_norm(cfg.norm, x, lp["mlp_norm"])
     if cfg.moe:
-        return moe_ffn(h, lp, cfg.moe, activation=cfg.activation)
+        return moe_ffn(h, lp, cfg.moe, activation=cfg.activation,
+                       mesh=ctx.mesh if ctx is not None else None)
+    h = _to_model(h, ctx)
     g = h @ lp["w_gate"].to(h.dtype)
     i = h @ lp["w_in"].to(h.dtype)
     out = (act_fn(cfg.activation)(g) * i) @ lp["w_out"].to(h.dtype)
-    return out, torch.zeros((), device=x.device)
+    return _from_model(out, ctx), torch.zeros((), device=x.device)
 
 
-def layer_forward(x, lp, cfg: LMConfig, positions):
-    """Full-sequence layer (train / prefill). Returns (x, aux, (k, v))."""
-    q, k, v = _attn_qkv(x, lp, cfg, positions)
+def layer_forward(x, lp, cfg: LMConfig, positions,
+                  ctx: Optional[ShardCtx] = None):
+    """Full-sequence layer (train / prefill). Returns (x, aux, (k, v)).
+    Under a mesh, `lp` holds this rank's compute blocks of one layer
+    (`utils.sharding.layer_views`) and x its rows, whole on every "model"
+    rank, as are the returned x; k and v hold its local heads."""
+    q, k, v = _attn_qkv(x, lp, cfg, positions, ctx)
     att = causal_attention(q, k, v, q_offset=0, window=cfg.sliding_window,
                            chunk_q=cfg.attn_chunk_q,
                            chunk_kv=cfg.attn_chunk_kv)
     b, s, _, _ = att.shape
-    att = att.reshape(b, s, cfg.q_dim)
-    x = x + att @ lp["wo"].to(att.dtype)
-    ffn_out, aux = _ffn(x, lp, cfg)
+    att = att.reshape(b, s, cfg.q_dim // _tp(ctx))
+    x = x + _from_model(att @ lp["wo"].to(att.dtype), ctx)
+    ffn_out, aux = _ffn(x, lp, cfg, ctx)
     return x + ffn_out, aux, (k, v)
 
 
-def lm_head_logits(params, cfg: LMConfig, x):
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ w.to(x.dtype)
+def _head_weight(params, cfg: LMConfig, ctx):
+    """The head's (d, V) weight, or this rank's (d, V / tp) block."""
+    if cfg.tie_embeddings:
+        w = params["embed"] if not _sharded(ctx) else ctx.view(params["embed"])
+        return w.T
+    return params["lm_head"] if not _sharded(ctx) else ctx.view(
+        params["lm_head"])
+
+
+def _head(w, x, ctx):
+    return _to_model(x, ctx) @ w.to(x.dtype)
+
+
+def lm_head_logits(params, cfg: LMConfig, x, ctx: Optional[ShardCtx] = None):
+    """Logits (..., V); under a mesh this rank's vocab block (..., V / tp)
+    of its rows."""
+    return _head(_head_weight(params, cfg, ctx), x, ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -314,36 +553,74 @@ def _layer_scan(layers: list[dict], carry, cfg: LMConfig, step_fn):
     return carry
 
 
-def forward_hidden(params, cfg: LMConfig, tokens):
-    """tokens (B, S) -> final hidden (B, S, d) + summed MoE aux loss."""
+def _check_tp(cfg: LMConfig, ctx: ShardCtx) -> None:
+    """Tensor parallelism here keeps whole heads on a rank."""
+    tp = ctx.tp
+    for what, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
+                    ("vocab", cfg.vocab), ("d_ff", cfg.d_ff or tp)):
+        sharding.check_divisible(n, tp, what)
+
+
+def forward_hidden(params, cfg: LMConfig, tokens,
+                   ctx: Optional[ShardCtx] = None):
+    """tokens (B, S) -> final hidden (B, S, d) + summed MoE aux loss.
+    Under a mesh, tokens are the global batch (the same on every rank)
+    and the hidden states this rank's rows (`ShardCtx.batch_rows`)."""
     dev = params["embed"].device
     tokens = to_device(tokens, dev)
+    sharded = _sharded(ctx)
+    if sharded:
+        _check_tp(cfg, ctx)
+        tokens, _ = ctx.batch_rows(tokens)
     b, s = tokens.shape
     positions = torch.arange(s, device=dev)[None].expand(b, s)
 
     def step(carry, lp):
         x, aux = carry
-        x, a, _ = layer_forward(x, lp, cfg, positions)
+        x, a, _ = layer_forward(x, lp() if callable(lp) else lp, cfg,
+                                positions, ctx)
         return x, aux + a
 
-    layers = _unstack(compute_cast(params["layers"], cfg.compute_dtype))
+    layers = compute_cast(params["layers"], cfg.compute_dtype)
+    layers = (sharding.layer_views(layers, ctx.mesh, ctx.batch_axes)
+              if sharded else _unstack(layers))
+    embed, final_norm = params["embed"], params["final_norm"]
+    if sharded:
+        embed, final_norm = ctx.view(embed), ctx.view(final_norm)
     with f32_matmul():
-        x = embed_lookup(params["embed"], tokens, cfg)
+        x = embed_lookup(embed, tokens, cfg, ctx)
         x, aux = _layer_scan(layers, (x, torch.zeros((), device=dev)), cfg,
                              step)
-        x = apply_norm(cfg.norm, x, params["final_norm"])
+        x = apply_norm(cfg.norm, x, final_norm)
     return x, aux
 
 
-def lm_loss(params, cfg: LMConfig, tokens, labels):
+def lm_loss(params, cfg: LMConfig, tokens, labels,
+            ctx: Optional[ShardCtx] = None):
     """Mean next-token cross entropy (+ MoE aux). tokens/labels (B, S).
-    Returns (ce + aux, {"ce": ce, "aux": aux})."""
-    x, aux = forward_hidden(params, cfg, tokens)
+    Returns (ce + aux, {"ce": ce, "aux": aux}).  Under a mesh the mean
+    is over the global batch, the same value on every rank: each rank's
+    share of the sum is added over the batch axes (divided by the ranks
+    that hold the same rows, where the batch does not split)."""
+    x, aux = forward_hidden(params, cfg, tokens, ctx)
     labels = to_device(labels, x.device)
+    if not _sharded(ctx):
+        with f32_matmul():
+            ce = softmax_xent_chunked(
+                lambda xc: lm_head_logits(params, cfg, xc), x, labels,
+                n_chunks=min(cfg.loss_chunks, x.shape[1]))
+        return ce + aux, {"ce": ce, "aux": aux}
+    n_tok = labels.numel()
+    labels, copies = ctx.batch_rows(labels)
+    w = _head_weight(params, cfg, ctx)
+    shard = ((ctx.mesh, ctx.model_axis) if ctx.tp > 1 else None)
     with f32_matmul():
         ce = softmax_xent_chunked(
-            lambda xc: lm_head_logits(params, cfg, xc), x, labels,
-            n_chunks=min(cfg.loss_chunks, x.shape[1]))
+            lambda xc: _head(w, xc, ctx), x, labels,
+            n_chunks=min(cfg.loss_chunks, x.shape[1]), vocab_shard=shard)
+    # the local mean over this rank's rows, as the global mean's share
+    ce = ce * (labels.numel() / (n_tok * copies))
+    ce = reduce_from(ce, ctx.mesh, ctx.batch_axes)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
@@ -423,8 +700,8 @@ def decode_step(params, cfg: LMConfig, tokens, positions, caches,
     """
     if kv_mode in ("seq", "seq_all"):
         raise NotImplementedError(
-            f"kv_mode={kv_mode!r} (a sequence-sharded cache) waits for the "
-            f"sharded slice (ROADMAP Queue 1 item 7.3)")
+            f"kv_mode={kv_mode!r} (a sequence-sharded cache) waits for mesh "
+            f"B (ROADMAP Queue 1 item 2, the second part of 7.3)")
     if kv_mode not in ("local", "head"):
         raise ValueError(kv_mode)
     ck_all, cv_all, _ = caches

@@ -21,9 +21,16 @@ each member's offset, eight members at a time, with its CRC-32 checked
 at half the disk's rate or less on a 15 GB train state (PERF.md §5).
 
 numpy has no bfloat16: a bf16 leaf raises (the train state's
-parameters are f32 masters).  The elastic restore onto a new mesh
-(`restore_sharded`) waits for the sharded slice (ROADMAP Queue 1 item
-7.3).
+parameters are f32 masters).
+
+Sharded trees (`utils.sharding` DTensor leaves): every rank of the mesh
+calls `save` (or `AsyncCheckpointer.save`) and joins the gather of each
+leaf's full tensor, on the caller's thread; the mesh's first rank (every
+coordinate 0) writes the same npz and manifest as for an unsharded tree,
+and the others wait at a barrier (the async writer's, in its `wait`).
+Elastic restore: `restore_sharded` reads the full arrays and cuts each
+into the new layout's block (`utils.sharding.shard_leaf`) -- the mesh
+and its device count may differ from the saving run's.
 """
 from __future__ import annotations
 
@@ -40,6 +47,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from torch.distributed.tensor import DTensor
+
+from ..utils.sharding import axis_names, barrier, full_tensor, shard_leaf
 from ..utils.tree import flatten_with_path, leaves, unflatten
 
 
@@ -142,10 +152,41 @@ def _read_npz(path: str, keys) -> dict:
     return out
 
 
+def _mesh_of(flat: list):
+    """The mesh of the first sharded leaf, or None."""
+    return next((x.device_mesh for x in flat if isinstance(x, DTensor)),
+                None)
+
+
+def _writes(mesh) -> bool:
+    """Whether this rank writes: no mesh, or the mesh's first rank."""
+    return mesh is None or all(mesh.get_local_rank(a) == 0
+                               for a in axis_names(mesh))
+
+
 def save(ckpt_dir: str, step: int, tree: Any) -> str:
-    """Atomic checkpoint write. Returns the final path."""
+    """Atomic checkpoint write. Returns the final path.  A sharded tree:
+    every rank of its mesh calls, the first rank writes (above)."""
+    flat = flatten_with_path(tree)
+    mesh = _mesh_of([v for _, v in flat])
+    if mesh is not None:
+        host = {}
+        for k, v in flat:          # gathered a leaf at a time, every rank
+            full = full_tensor(v)
+            if _writes(mesh):
+                host[k] = _host(full)
+            del full
+        path = os.path.join(ckpt_dir, f"ckpt_{step:08d}.npz")
+        if _writes(mesh):
+            _write(ckpt_dir, step, host)
+        barrier(mesh)
+        return path
+    return _write(ckpt_dir, step, {k: _host(v) for k, v in flat})
+
+
+def _write(ckpt_dir: str, step: int, host: dict) -> str:
+    """Write the npz of host arrays and the manifest, atomically."""
     os.makedirs(ckpt_dir, exist_ok=True)
-    host = {k: _host(v) for k, v in flatten_with_path(tree)}
     path = os.path.join(ckpt_dir, f"ckpt_{step:08d}.npz")
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
@@ -181,6 +222,14 @@ def restore(ckpt_dir: str, like: Any, step: Optional[int] = None):
     The leaf set must match exactly -- a changed model structure is an
     error, not a silent partial restore.
     """
+    like_flat, arrays, step = _read(ckpt_dir, like, step)
+    out = [_leaf(arrays.pop(k), ref) for k, ref in like_flat]
+    return unflatten(like, out), step
+
+
+def _read(ckpt_dir: str, like: Any, step: Optional[int]):
+    """(like's [(path, leaf)], {path: host array}, step) of the checkpoint
+    at `step` (None: the latest); the leaf sets must match."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
@@ -194,19 +243,51 @@ def restore(ckpt_dir: str, like: Any, step: Optional[int] = None):
     if missing or extra:
         raise ValueError(f"checkpoint/model mismatch: missing="
                          f"{missing[:5]} extra={extra[:5]}")
-    arrays = _read_npz(path, paths)
-    out = [torch.from_numpy(arrays.pop(k)).to(device=ref.device,
-                                              dtype=ref.dtype)
-           if torch.is_tensor(ref) else arrays.pop(k)
-           for k, ref in like_flat]
+    return like_flat, _read_npz(path, paths), step
+
+
+def _leaf(a: np.ndarray, ref):
+    """A stored array on `ref`'s device and in its dtype (a tensor `ref`),
+    else the host array."""
+    if not torch.is_tensor(ref):
+        return a
+    return torch.from_numpy(a).to(device=ref.device, dtype=ref.dtype)
+
+
+def _aligned(like: Any, shardings: Any) -> list:
+    """The leaf of `shardings` at each leaf position of `like`, in
+    `flatten_with_path`'s order (None where `shardings` has None)."""
+    out = []
+
+    def walk(t, s):
+        if t is None:
+            return
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], None if s is None else s[k])
+        elif isinstance(t, (list, tuple)):
+            for i, c in enumerate(t):
+                walk(c, None if s is None else s[i])
+        else:
+            out.append(s)
+
+    walk(like, shardings)
+    return out
+
+
+def restore_sharded(ckpt_dir: str, like: Any, shardings,
+                    step: Optional[int] = None):
+    """Elastic restore: each leaf read whole and laid out by its
+    `utils.sharding.NamedSharding` in `shardings` (a tree like `like`;
+    None: a plain tensor), on `like`'s devices and dtypes -- the mesh and
+    its device count may differ from the run that saved.  No
+    communication: every rank reads the npz.  Returns (tree, step)."""
+    like_flat, arrays, step = _read(ckpt_dir, like, step)
+    out = []
+    for (k, ref), s in zip(like_flat, _aligned(like, shardings)):
+        x = _leaf(arrays.pop(k), ref)
+        out.append(x if s is None else shard_leaf(s.mesh, s.spec, x))
     return unflatten(like, out), step
-
-
-def restore_sharded(*args, **kwargs):
-    """Elastic restore onto a mesh (the new device count may differ)."""
-    raise NotImplementedError(
-        "restore_sharded (an elastic restore onto a mesh) waits for the "
-        "sharded slice (ROADMAP Queue 1 item 7.3); use restore")
 
 
 class AsyncCheckpointer:
@@ -224,10 +305,19 @@ class AsyncCheckpointer:
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self._pinned: list = []
+        self._mesh = None
 
     def _snapshot(self, flat: list) -> list:
         """Host copies of the leaves, CUDA ones through the pinned
-        buffers (allocated again when the leaves' shapes change)."""
+        buffers (allocated again when the leaves' shapes change).  A
+        sharded tree is gathered leaf by leaf (every rank joins); only
+        the writing rank keeps the copies."""
+        if self._mesh is not None:
+            full = []
+            for x in flat:
+                x = full_tensor(x)
+                full.append(_host(x) if _writes(self._mesh) else None)
+            return full
         cuda = [torch.is_tensor(x) and x.is_cuda
                 and x.dtype != torch.bfloat16 for x in flat]
         if len(self._pinned) != len(flat) or any(
@@ -247,7 +337,11 @@ class AsyncCheckpointer:
 
     def save(self, step: int, tree: Any) -> None:
         self.wait()
-        host = unflatten(tree, self._snapshot(leaves(tree)))
+        flat = leaves(tree)
+        self._mesh = _mesh_of(flat)
+        host = unflatten(tree, self._snapshot(flat))
+        if not _writes(self._mesh):
+            return
 
         def write():
             try:
@@ -260,10 +354,13 @@ class AsyncCheckpointer:
         self._thread.start()
 
     def wait(self) -> None:
-        """Block until the pending write is done; re-raise its error."""
+        """Block until the pending write is done; re-raise its error.  After
+        a sharded save, every rank waits here for the writer."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._mesh is not None:
+            barrier(self._mesh)
         if self._error is not None:
             err, self._error = self._error, None
             raise err

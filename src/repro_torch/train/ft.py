@@ -22,8 +22,11 @@ same deterministic way the I/O layer draws read errors.  A step that
 failed on attempt 0 is drawn again under the restart's attempt number,
 so a retried run makes progress as a retried block read does.
 
-A restart onto a different mesh (`resume_or_init`'s `shardings`) waits
-for the sharded slice (ROADMAP Queue 1 item 7.3).
+  changed topology           elastic restore: `resume_or_init(...,
+  (lose a pod, resize DP)    shardings=...)` lays the checkpoint's full
+                             arrays out on the new mesh
+                             (`checkpoint.restore_sharded`); ZeRO-1
+                             moment blocks re-partition with it.
 """
 from __future__ import annotations
 
@@ -92,16 +95,17 @@ def run_loop(state, step_fn: Callable, batch_fn: Callable, n_steps: int,
 def resume_or_init(init_fn: Callable[[], Any], ft: FTConfig,
                    shardings=None) -> Any:
     """Restore the latest checkpoint if present (onto the fresh state's
-    devices and dtypes), else the fresh init."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "resume_or_init with shardings (a restore onto a mesh) waits for "
-            "the sharded slice (ROADMAP Queue 1 item 7.3)")
+    devices and dtypes; with `shardings`, a tree of
+    `utils.sharding.NamedSharding` like the state, laid out on their
+    mesh), else the fresh init."""
     step = ckpt.latest_step(ft.ckpt_dir)
     state = init_fn()
     if step is None:
         return state
-    state, _ = ckpt.restore(ft.ckpt_dir, state)
+    if shardings is not None:
+        state, _ = ckpt.restore_sharded(ft.ckpt_dir, state, shardings)
+    else:
+        state, _ = ckpt.restore(ft.ckpt_dir, state)
     return state
 
 

@@ -8,8 +8,14 @@ by the global norm, bias corrections from `count` in f32,
 learning rate, `count` and every metric stay device tensors, so a step
 never waits on the host.
 
-ZeRO-1 (`opt_state_specs`: the moments sharded over the data axis) waits
-for the sharded slice (ROADMAP Queue 1 item 7.3).
+Sharded leaves (`utils.sharding` DTensors): every rank updates its own
+blocks, the clip uses the global norm (each block's sum of squares summed
+over the axes that shard it: the same on every rank).  ZeRO-1
+(`opt_state_specs`): the moments shard their leading dim over the data
+axis when divisible and free; a parameter replicated over that axis is
+then updated on the moments' block and all-gathered back (the
+reduce-scatter / sharded update / all-gather schedule GSPMD lowers the
+reference's update into).
 """
 from __future__ import annotations
 
@@ -18,7 +24,10 @@ import math
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from ..utils.sharding import (P, all_gather, axis_names, axis_size, local,
+                              map_specs, sharded_dims)
 from ..utils.tree import global_norm, leaves, tree_map, unflatten
 
 __all__ = ["AdamWConfig", "lr_at", "adamw_init", "global_norm",
@@ -82,6 +91,8 @@ def adamw_update(cfg: AdamWConfig, grads, state, params,
     b2c = 1 - cfg.b2 ** count.float()
 
     def upd(p, g, m, v):
+        if isinstance(p, DTensor) or isinstance(m, DTensor):
+            return _upd_blocks(p, g, m, v, upd)
         if scale is not None:
             g = g * scale
         g = g.float()
@@ -98,6 +109,26 @@ def adamw_update(cfg: AdamWConfig, grads, state, params,
             return p, m, v
         return p_new, m_new, v_new
 
+    def _upd_blocks(p, g, m, v, upd_local):
+        """The update on this rank's blocks: on the moments' block of p
+        and g where ZeRO-1 shards the moments further (then p's new block
+        is all-gathered back)."""
+        extra = [ad for ad in sharded_dims(m) if ad not in sharded_dims(p)]
+        pl, gl = local(p), local(g)
+        mesh = m.device_mesh if isinstance(m, DTensor) else p.device_mesh
+        for axis, d in extra:
+            c = pl.shape[d] // axis_size(mesh, axis)
+            i = mesh.get_local_rank(axis)
+            pl, gl = pl.narrow(d, i * c, c), gl.narrow(d, i * c, c)
+        p_new, m_new, v_new = upd_local(pl, gl, local(m), local(v))
+        for axis, d in reversed(extra):
+            p_new = all_gather(p_new, mesh, axis, d)
+        if inplace:
+            if extra:
+                local(p).copy_(p_new)
+            return p, m, v
+        return _like(p, p_new), _like(m, m_new), _like(v, v_new)
+
     out = [upd(p, g, m, v) for p, g, m, v in zip(
         leaves(params), leaves(grads), leaves(state["m"]),
         leaves(state["v"]))]
@@ -111,8 +142,35 @@ def adamw_update(cfg: AdamWConfig, grads, state, params,
         {"grad_norm": gn, "lr": lr}
 
 
-def opt_state_specs(*args, **kwargs):
-    """Partition specs of the optimizer state over a mesh (ZeRO-1)."""
-    raise NotImplementedError(
-        "opt_state_specs (ZeRO-1 moments over a mesh) waits for the sharded "
-        "slice (ROADMAP Queue 1 item 7.3)")
+def _like(x, new_local):
+    """`new_local` laid out as the DTensor `x` (a plain `x`: itself)."""
+    if not isinstance(x, DTensor):
+        return new_local
+    return DTensor.from_local(new_local, x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def opt_state_specs(param_specs, zero1: bool = False, params_shapes=None,
+                    mesh=None, data_axis: str = "data"):
+    """Specs for the optimizer state tree.  zero1=True additionally shards
+    each moment's first dim over `data_axis` when divisible and free
+    (`params_shapes`: the parameters, or their shapes)."""
+    def moment_spec(spec, shape):
+        if not zero1 or mesh is None or data_axis not in axis_names(mesh):
+            return spec
+        dp = axis_size(mesh, data_axis)
+        dims = list(spec) if spec is not None else [None] * len(shape)
+        while len(dims) < len(shape):
+            dims.append(None)
+        if dims and dims[0] is None and shape[0] % dp == 0:
+            dims[0] = data_axis
+            return P(*dims)
+        return spec
+
+    if params_shapes is None:
+        m_specs = param_specs
+    else:
+        m_specs = map_specs(moment_spec, param_specs, params_shapes)
+    return {"m": m_specs, "v": m_specs,
+            "count": P() if mesh is not None else None}

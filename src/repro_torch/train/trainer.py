@@ -19,9 +19,12 @@ Fault tolerance contract (train/ft.py): state is a tree of tensors -> any
 step boundary is a consistent snapshot; data order is a function of step
 (data/pipeline.py) -> restart replays identically.
 
-The manual data-parallel step with a compressed all-reduce
-(`make_manual_dp_step`) waits for the sharded slice (ROADMAP Queue 1 item
-7.3).
+Sharded training: with parameters laid out by `ShardCtx` specs
+(`utils.sharding` DTensor leaves) and a loss that takes the mesh,
+`make_train_step` runs as it is on every rank: the gradients come back
+as blocks laid out as the parameters, and `adamw_update` updates each
+rank's blocks.  `make_manual_dp_step` is explicit data parallelism with
+a compressed gradient all-reduce (`train.compression.compressed_psum`).
 """
 from __future__ import annotations
 
@@ -30,8 +33,9 @@ from typing import Callable
 import torch
 
 from ..core.distances import f32_matmul
+from ..utils.sharding import P, all_reduce, axis_size, local, shard_leaf
 from ..utils.tree import leaves, tree_map, unflatten
-from .compression import ef_init
+from .compression import compressed_psum, ef_init
 from .optimizer import AdamWConfig, adamw_init, adamw_update
 
 
@@ -107,8 +111,39 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
     return step
 
 
-def make_manual_dp_step(*args, **kwargs):
-    """Data parallelism with a compressed gradient all-reduce."""
-    raise NotImplementedError(
-        "make_manual_dp_step (data parallelism with a compressed all-reduce "
-        "over a mesh) waits for the sharded slice (ROADMAP Queue 1 item 7.3)")
+def make_manual_dp_step(loss_fn: Callable, opt_cfg: AdamWConfig, mesh,
+                        dp_axes: tuple = ("data",),
+                        compression: str = "int8_ef"):
+    """Explicit data parallelism with a compressed gradient all-reduce
+    (the cross-pod outer loop of the reference, DESIGN.md §4).
+
+    The model is replicated: every rank holds the whole state (plain
+    tensors), takes its rows of the global batch over `dp_axes`, computes
+    its gradients, exchanges them with `compressed_psum` (state["ef"]
+    holds int8_ef's error feedback) and applies the same AdamW update.
+    Returns the step function (state, batch) -> (state, {"loss" (the
+    mean over the replicas), "grad_norm", "lr"}); every rank of the mesh
+    calls it."""
+    axes = (dp_axes,) if isinstance(dp_axes, str) else tuple(dp_axes)
+    n = 1
+    for ax in axes:
+        n *= axis_size(mesh, ax)
+
+    def rows(x):
+        return local(shard_leaf(mesh, P(axes), torch.as_tensor(x)))
+
+    def step(state, batch):
+        params = state["params"]
+        loss, _aux, g = loss_and_grads(loss_fn, params, tree_map(rows, batch))
+        g, new_ef = compressed_psum(g, axes, method=compression,
+                                    err=state.get("ef"), mesh=mesh)
+        loss = all_reduce(loss, mesh, axes) / n
+        new_params, new_opt, om = adamw_update(opt_cfg, g, state["opt"],
+                                               params)
+        new_state = dict(state, step=state["step"] + 1, params=new_params,
+                         opt=new_opt)
+        if new_ef is not None:
+            new_state["ef"] = new_ef
+        return new_state, {"loss": loss, **om}
+
+    return step

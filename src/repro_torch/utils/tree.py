@@ -15,6 +15,7 @@ import math
 from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 
 def _children(tree):
@@ -97,9 +98,18 @@ def tree_bytes(tree) -> int:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum, over the leaves in order, of each leaf's f32 sum
-    of squares (the reference's order: one sum a leaf, then their sum)."""
-    sq = [torch.sum(torch.square(x.float())) for x in leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sq)))
+    of squares (the reference's order: one sum a leaf, then their sum).
+    A sharded leaf (DTensor) sums its block's squares, then sums them
+    over the mesh axes that shard it, so every rank gets the same norm."""
+    xs = leaves(tree)
+    sharded = [isinstance(x, DTensor) for x in xs]
+    if not any(sharded):
+        sq = [torch.sum(torch.square(x.float())) for x in xs]
+        return torch.sqrt(torch.sum(torch.stack(sq)))
+    from .sharding import shard_sums       # sharding imports this module
+    sq = [torch.sum(torch.square(x.to_local().float())) if s
+          else torch.sum(torch.square(x.float())) for x, s in zip(xs, sharded)]
+    return torch.sqrt(torch.sum(torch.stack(shard_sums(sq, xs))))
 
 
 def tree_cast(tree, dtype: torch.dtype):

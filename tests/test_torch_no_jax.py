@@ -78,7 +78,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.models.gnn.dimenet",
             "repro_torch.configs.graphcast_cfg",
             "repro_torch.configs.nequip_cfg", "repro_torch.configs.mace_cfg",
-            "repro_torch.configs.dimenet_cfg"} <= set(mods)
+            "repro_torch.configs.dimenet_cfg",
+            "repro_torch.utils.sharding"} <= set(mods)
     code = "\n".join([
         "import importlib, sys, runpy",
         "for name in ('jax', 'jaxlib', 'repro'):",

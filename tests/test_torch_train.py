@@ -46,7 +46,7 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.attention import causal_attention
 from repro_torch.models.recsys import din
 from repro_torch.train import checkpoint as ckpt
-from repro_torch.train import compression, ft, optimizer, trainer
+from repro_torch.train import compression, trainer
 from repro_torch.train.compression import (dequantize_int8, ef_compress,
                                            ef_init, quantize_int8)
 from repro_torch.train.ft import (FTConfig, resume_or_init, run_loop,
@@ -643,16 +643,3 @@ def test_recovery_under_fault_plan_matches_reference(tmp_path):
     want = jtf.lm_loss(jres[0]["params"], JCFG, jnp.asarray(b["tokens"]),
                        jnp.asarray(b["labels"]), JCTX)[0]
     np.testing.assert_allclose(float(got), float(want), rtol=1e-4)
-
-
-@pytest.mark.parametrize("fn", [
-    lambda: trainer.make_manual_dp_step(loss_fn, OPT, None),
-    lambda: compression.compressed_psum({}, ("data",)),
-    lambda: ckpt.restore_sharded("d", {}, {}),
-    lambda: optimizer.opt_state_specs({}),
-    lambda: ft.resume_or_init(fresh_state, FTConfig(), shardings={}),
-], ids=["make_manual_dp_step", "compressed_psum", "restore_sharded",
-        "opt_state_specs", "resume_or_init_sharded"])
-def test_mesh_halves_raise_naming_the_sharded_slice(fn):
-    with pytest.raises(NotImplementedError, match="7.3"):
-        fn()
