@@ -8,8 +8,8 @@ DimeNet) on one NVIDIA GPU, and its sharded mesh on ranks that share it.
 
 Run from the root of a checkout, with one card:
 
-    python3 chip_smoke.py         # serve at N = 1,000,000, build at 100,000
-    python3 chip_smoke.py --n 100000 --build-n 20000 --disk-n 5000  # quicker
+    python3 chip_smoke.py         # serve at N = 1,000,000, build at 25,000
+    python3 chip_smoke.py --n 100000 --build-n 10000 --disk-n 2000  # quicker
 
 Phases, in the order they run (9 runs right after 4, on its corpus; 8
 right after 5, on its BAMG; 10 right after 8, on its index; 11, 12,
@@ -87,7 +87,7 @@ check raises and the script exits nonzero:
 8. the disk-resident index: phase 5's graph, codec, codes and nav graph
    wrapped in the port's `BAMGIndex` through its constructor and
    `_make_decoupled_store` (29 nodes a 4 KB graph block, vectors in their
-   own region), nothing rebuilt; `search_batch` on 1,000 queries with
+   own region), nothing rebuilt; `search_batch` on 250 queries with
    exact top-10 at L = 64 and 128 under the default I/O (LRU, 256 graph
    and 256 vector blocks cached, qd 1, caches dropped before each query),
    then at qd = 4 with batched submissions, logging recall@10, mean NIO,
@@ -107,9 +107,9 @@ check raises and the script exits nonzero:
    must leave ACTIVE, a tampered artifact that must raise
    `IntegrityError`, a second deploy that `BlueGreenEngine.refresh`
    must swap in and `rollback` must undo; a `FreshService` bootstrapped
-   from phase 8's `--disk-n` BAMG takes `--inserts` (1,000, 5%) vectors
+   from phase 8's `--disk-n` BAMG takes `--inserts` (250, 5%) vectors
    of another seed and 1% deletes of the queries' true top-10, serves
-   1,000 queries batched under "auto" and 100 on the host path,
+   phase 8's 250 queries batched under "auto" and 100 on the host path,
    consolidates (validated, published, promoted, swapped) and serves
    again: no deleted id may come back, before consolidation every insert
    must come back first at distance 0 for its own vector on the batched
@@ -148,8 +148,8 @@ check raises and the script exits nonzero:
 11. the four other LM archs at their full configs, one at a time, each
    from bf16 weights that `init_lm_params(..., dtype=torch.bfloat16)`
    draws on the card, freed before the next: B prompts from `lm_batch`
-   and 16 greedy steps under "auto" and "ref" (fed auto's tokens), then
-   decode_32k on a cache drawn N(0, 1), 16 steps at position 32,767 under
+   and 8 greedy steps under "auto" and "ref" (fed auto's tokens), then
+   decode_32k on a cache drawn N(0, 1), 8 steps at position 32,767 under
    both -- gemma-7b B = 8 x 1,024 tokens, the f32 teacher-forced check
    (4 steps, the bf16 weights cast up), decode_32k at B = 2 (the cell's
    128 would need 1.92 TB of cache); h2o-danube-3-4b B = 4 x 4,608
@@ -175,8 +175,9 @@ check raises and the script exits nonzero:
    AdamW after 2 warmup steps, lr 1e-4 for the LMs and 1e-3 for DIN):
    OLMo-1B train_4k at its full
    config (bf16 compute, remat "full", 64 loss chunks) at B = 8 x 4,096
-   (the cell's 256 cut to 8) in TRAIN_ACCUM 2 micro-batches, 8 steps with
-   an async checkpoint every 4 -- losses finite and falling, the step
+   (the cell's 256 cut to 8) in TRAIN_ACCUM 2 micro-batches, the first 4
+   steps of an 8-step schedule, then an async checkpoint -- losses
+   finite and falling, the step
    median, tokens/s, model FLOP share of the bf16 peak, busy share over
    one profiled step, peak memory -- and its last checkpoint restored
    bitwise onto the card; that checkpoint cast to bf16 and served: 4 x
@@ -239,10 +240,39 @@ check raises and the script exits nonzero:
    whole table) giving each rank's rows the single card's ids; and
    `make_manual_dp_step(..., compression="int8_ef")` on a (4,) data mesh
    at the reference test's config (`reduced`): after ten steps within
-   0.05 of `make_train_step`'s loss.  The shortlist is the mesh path's one
-   kernel: each rank's `l2_topk` counter must be nonzero (the single-card
-   comparison's launches not counted), every other counter, in each rank
-   and here, 0.
+   0.05 of `make_train_step`'s loss.  Then mesh B, in the same spawn,
+   each part at the published widths against a single-card reference
+   computed here before the ranks start and freed: (1) OLMo-1B's
+   long_500k, MESH_LAYERS layers (`reduced`), B = 1 at all 524,288
+   positions under kv_mode "seq_all" (the cache's sequence over both
+   axes: a 4.29 GB bf16 block a rank, 17.2 GB in all, synthetic, drawn
+   131,072 positions a seed so that each rank draws its slice and the
+   parent the same bits whole): an f32 step at position 524,287 (the
+   last rank's last row) and one at 262,144 (the first row of rank 2's
+   slice, rank 3 left empty), each rank's logits within rtol / atol 3e-4
+   of `decode_step(kv_mode="local", backend="ref")` on the whole cache
+   here, the new row written by its owner alone within one bf16 ulp of
+   the row written here; then 8 bf16 steps timed; (2) decode_32k under
+   "head" (16 kv heads over tp 2), B = 8 x 32,768 slots, 4 layers: a
+   sharded `serve_prefill(ctx=)` of 512 tokens placed into the cache
+   (the rest drawn N(0, 1) by row), its logits within 0.25 of the
+   single card's, then 8 steps under "auto", `flash_decode` in each
+   rank, each within phase 7's rule (0.25) of the single card's, fed
+   its tokens; (3) Qwen1.5-MoE-A2.7B at full width with 2 of its 24
+   layers (`reduced`), experts over model x FSDP over data, B = 4 x
+   512, through `make_train_step`: step 0 in f32 at no-drop capacities
+   (8.0 / 8.0, remat "none"; its lr is 0) within rtol 1e-4 (loss) and
+   1e-3 (gradient norm) of the single card's with no slot dropped, then
+   QWEN_STEPS (1, `reduced` from 4) bf16 step at the published
+   capacities (a finite loss), each rank's dropped slots in each
+   forward, the
+   all_to_all bytes, and one "head" decode step of the trained model
+   through the expert-parallel FFN on a 64-slot cache drawn N(0, 1).  Each part logs its
+   steps' ms over gloo (no figure of NCCL), collectives by kind, count
+   and bytes, and peak GiB by rank.  The shortlist and "head" decode are
+   the mesh path's kernels: each rank's `l2_topk` and `flash_decode`
+   counters must be nonzero (the single-card comparisons' launches not
+   counted), every other counter, in each rank and here, 0.
 
 The last lines are the script's time, the card's nvidia-smi line, one JSON
 object with every kernel's numbers, and `{"ok": true, "device": {...}}`.
@@ -881,10 +911,10 @@ def lm_archs(dev, card, reset_counts, read_counts) -> dict:
 def serve_arch(dev, card, cfg, b, p_len, f32_check, b32, long_500k,
                reset_counts, read_counts) -> int:
     """One arch of phase 11 from bf16 weights drawn on the card: B = b
-    prompts of p_len tokens and 16 greedy steps under "auto" and "ref"
+    prompts of p_len tokens and 8 greedy steps under "auto" and "ref"
     (fed auto's tokens); for dense archs the f32 teacher-forced check;
     decode_32k at B = b32 (None: not run) and, where asked, long_500k at
-    B = 1, each on a cache drawn N(0, 1), 16 steps at the shape's last
+    B = 1, each on a cache drawn N(0, 1), 8 steps at the shape's last
     position under both backends.  MoE archs are held to the routing-aware
     rule (`RouteLog.agree`), against "ref" and against "ref" fed auto's
     routes.  Returns flash_decode's launches over the bf16 `auto` runs."""
@@ -916,7 +946,8 @@ def serve_arch(dev, card, cfg, b, p_len, f32_check, b32, long_500k,
         f"{cfg.n_params()} parameters ({cfg.n_active_params()} active), "
         f"{stored / 1e9:.3f} GB stored in bf16 | init_lm_params on the card "
         f"{ms_init / 1e3:.2f} s")
-    n_layers, n_steps = cfg.n_layers, 16
+    # 8 steps a run (16 until the smoke outgrew its time limit)
+    n_layers, n_steps = cfg.n_layers, 8
     routes = RouteLog(moe) if cfg.moe else None
     total = 0
 
@@ -959,7 +990,7 @@ def serve_arch(dev, card, cfg, b, p_len, f32_check, b32, long_500k,
                 f"tokens/s), ref {statistics.median(runs['ref'][2]):.3f} ms",
                 med)
 
-    # requests: b prompts of p_len tokens (lm_batch), 16 greedy steps
+    # requests: b prompts of p_len tokens (lm_batch), n_steps greedy steps
     prompt = torch.from_numpy(lm_batch(0, b, p_len, cfg.vocab,
                                        seed=SEED)[0]).to(dev)
     serve_prefill(params, cfg, prompt[:, :64])                   # warm-up
@@ -1055,7 +1086,8 @@ def disk_index(dev, card, built, served, cfg, batch, disk_n,
 
     t_phase = time.perf_counter()
     ds, graph, codec, codes, nav = built
-    nq = 1000
+    # 250 queries: each is a host walk of 6 to 16 ms, six passes of them
+    nq = 250
     queries, gt = ds.queries[:nq], ds.gt[:nq, :10]
     launches = {}
 
@@ -1607,8 +1639,8 @@ def deploy_fresh(dev, card, index, ds, cfg, batch, disk_n, n_insert,
 
     # 2. freshness on phase 8's --disk-n BAMG: bootstrap, inserts, deletes,
     # serve, consolidate, serve again
-    nq = 1000
-    queries = ds.queries[:nq]
+    queries = ds.queries
+    nq = len(queries)
     n0, d = ds.base.shape
     svc = FreshService(str(root / "fresh"), params=BAMGParams(), config=cfg)
     t0 = time.perf_counter()
@@ -1887,8 +1919,11 @@ def _lm_setup(dev, cfg, b, s, n_steps):
 def _train_olmo(dev, card, ckpt_dir, reset_counts, no_launches):
     """Phase 12.1: OLMo-1B train_4k at full width and depth, B = 8 x 4,096
     (the cell's 256 cut to 8) in TRAIN_ACCUM 2 micro-batches of 4 x 4,096,
-    f32 masters, bf16 compute, remat "full", 64 loss chunks; 8 steps
-    through run_loop with an async checkpoint every 4.  Returns the
+    f32 masters, bf16 compute, remat "full", 64 loss chunks; the first 4
+    steps of an 8-step schedule through run_loop, then an async
+    checkpoint (8 steps and two checkpoints until the smoke outgrew its
+    time limit; the schedule is kept, so the losses are the same).
+    Returns the
     parameters of the last checkpoint, restored onto the card (held
     bitwise to the live state)."""
     import torch
@@ -1901,9 +1936,9 @@ def _train_olmo(dev, card, ckpt_dir, reset_counts, no_launches):
     from repro_torch.utils.tree import flatten_with_path, leaves
 
     cfg = olmo_1b.model_config()
-    b, s, n = 8, 4096, 8
+    b, s, n, schedule = 8, 4096, 4, 8
     torch.cuda.reset_peak_memory_stats()
-    gen, batch_fn, loss_fn, opt = _lm_setup(dev, cfg, b, s, n)
+    gen, batch_fn, loss_fn, opt = _lm_setup(dev, cfg, b, s, schedule)
     state, ms_init = synced(lambda: init_train_state(
         init_lm_params(cfg, gen, device=dev), opt))
     times, busy = [], {}
@@ -1912,7 +1947,7 @@ def _train_olmo(dev, card, ckpt_dir, reset_counts, no_launches):
     reset_counts()
     t0 = time.perf_counter()
     state, logged = run_loop(state, step, batch_fn, n,
-                             FTConfig(ckpt_dir=str(ckpt_dir), ckpt_every=4,
+                             FTConfig(ckpt_dir=str(ckpt_dir), ckpt_every=n,
                                       keep=1), log_every=1)
     t_loop = time.perf_counter() - t0
     no_launches("olmo-1b train_4k")
@@ -1936,8 +1971,8 @@ def _train_olmo(dev, card, ckpt_dir, reset_counts, no_launches):
         f"card busy {busy['ms']:.1f} ms over profiled step {n - 1} "
         f"({busy['runs']} kernel runs; wall {busy['wall']:.1f} ms) = "
         f"{busy['ms'] / med:.2%} of the unprofiled median | loop "
-        f"{t_loop:.1f} s, of it outside the steps (checkpoints at 4 and 8: "
-        f"host copies, the last write) "
+        f"{t_loop:.1f} s, of it outside the steps (the checkpoint at {n}: "
+        f"its host copy and write) "
         f"{t_loop - (sum(times) + busy['wall']) / 1e3:.1f} s | peak "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB | {card}")
     t0 = time.perf_counter()
@@ -2636,7 +2671,9 @@ def _olmo_mesh_setup(dev):
     return cfg, dataclasses.replace(cfg, dtype="float32"), batch_fn, opt
 
 
-def _olmo_params(cfg, dev):
+def _lm_params(cfg, dev):
+    """f32 parameters of `cfg` (any LM) drawn on dev from SEED: the same
+    bits on every rank and in the parent."""
     import torch
 
     from repro_torch.models.transformer import init_lm_params
@@ -2708,10 +2745,11 @@ def _all_ranks(mesh, values) -> list:
     return x.tolist()
 
 
-def _mesh4_rank(mesh, ckpt_dir: str, t_spawn: float) -> dict:
+def _mesh4_rank(mesh, ckpt_dir: str, t_spawn: float, refs_b: dict) -> dict:
     """Phase 14 on each of the 4 ranks of a (2, 2) mesh: OLMo-1B (step 0
     in f32, then MESH_STEPS bf16 steps, a save), DIN's lookup, loss and
-    retrieval shortlist, the compressed DP step on a (4,) mesh."""
+    retrieval shortlist, the compressed DP step on a (4,) mesh, then mesh
+    B (`_mesh_b_rank`) against the parent's `refs_b`."""
     import torch
 
     from repro_torch.configs import din_cfg
@@ -2748,7 +2786,7 @@ def _mesh4_rank(mesh, ckpt_dir: str, t_spawn: float) -> dict:
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = shard_tree(_olmo_params(cfg, dev), specs, mesh)
+    params = shard_tree(_lm_params(cfg, dev), specs, mesh)
     if cuda:
         torch.cuda.empty_cache()
     sync()
@@ -2853,6 +2891,9 @@ def _mesh4_rank(mesh, ckpt_dir: str, t_spawn: float) -> dict:
     # 14.4: the compressed DP step on a (4,) data mesh of the same ranks
     t0 = time.perf_counter()
     out["dp"] = dict(_dp_compressed(dev), s=time.perf_counter() - t0)
+
+    # 14.5-14.7: mesh B
+    out["b"] = _mesh_b_rank(mesh, dev, refs_b)
     out["launches"] = _all_ranks(mesh, [n - c for n, c in
                                         zip(counts(), compared)])
     return out
@@ -2943,14 +2984,437 @@ def _mesh2_rank(mesh, ckpt_dir: str, t_spawn: float) -> dict:
                 model["params"]["layers"]["wq"]).shape)}
 
 
+# Mesh B (phase 14.5-14.7): sharded serving and expert parallelism, in
+# the same 4-rank spawn.  OLMo-1B's long_500k cell at its full 524,288
+# positions, MESH_LAYERS layers: a synthetic bf16 cache drawn chunk by
+# chunk, LONG_CHUNK positions a seed, so that each rank draws its slice
+# and the parent the same bits whole
+LONG_S = 524288
+LONG_CHUNK = LONG_S // 4
+# OLMo-1B decode_32k under "head": phase 7's rows, a sharded prefill of
+# D32_PROMPT tokens placed into D32_S slots, the rest drawn N(0, 1)
+D32_B, D32_S, D32_PROMPT = 8, 32768, 512
+MESH_DECODE_STEPS = 8
+# Qwen1.5-MoE-A2.7B expert-parallel: phase 12's 2 of its 24 layers,
+# B = QWEN_B x QWEN_S; the f32 step 0, then QWEN_STEPS bf16 steps: 1,
+# not 4, since a step is 10.0-12.8 s over gloo (FSDP's layer
+# broadcasts, 2.4 GB a step) and phase 14 took 168.1 s with 4 and 151.4
+# s with 2, past its 150 s (PERF §6)
+QWEN_LAYERS, QWEN_B, QWEN_S, QWEN_STEPS = 2, 4, 512, 1
+# f32 logits of the mesh against one card (the reference test's bar)
+SEQ_TOL = 3e-4
+
+
+def _drawn(shape, seed: int, dev, dtype):
+    """N(0, 1) of `shape` from a generator seeded with `seed` on dev, in
+    dtype (drawn in f32)."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def _long_chunk(cfg, layer: int, chunk: int, dev):
+    """(k, v) of long_500k's synthetic cache: layer `layer`, positions
+    [chunk * LONG_CHUNK, (chunk + 1) * LONG_CHUNK), (1, LONG_CHUNK, Hkv,
+    Dh) bf16."""
+    import torch
+
+    shape = (1, LONG_CHUNK, cfg.n_kv_heads, cfg.d_head)
+    seed = 1_000_003 * (layer + 1) + 2 * chunk
+    return (_drawn(shape, seed, dev, torch.bfloat16),
+            _drawn(shape, seed + 1, dev, torch.bfloat16))
+
+
+def _d32_fill(cfg, layer: int, row: int, dev):
+    """(k, v) of decode_32k's cache past the prompt for one layer and
+    global batch row: (D32_S - D32_PROMPT, Hkv, Dh) bf16, all heads."""
+    import torch
+
+    shape = (D32_S - D32_PROMPT, cfg.n_kv_heads, cfg.d_head)
+    seed = 2_000_003 * (layer + 1) + 2 * row
+    return (_drawn(shape, seed, dev, torch.bfloat16),
+            _drawn(shape, seed + 1, dev, torch.bfloat16))
+
+
+def _long_tokens(vocab: int):
+    """The two tokens long_500k decodes (one row each), from lm_batch."""
+    from repro_torch.data.synthetic import lm_batch
+
+    return lm_batch(7, 1, 2, vocab, seed=SEED)[0]
+
+
+def _qwen_mesh_setup(dev):
+    """(bf16 config at the published capacities, f32 config at no-drop
+    capacities 8.0 / 8.0, batch_fn, AdamW config) of phase 14.7.  The
+    f32 step runs without remat (the same values; a recompute would
+    broadcast every f32 layer over gloo again)."""
+    import dataclasses
+
+    from repro_torch.configs import qwen2_moe_a2_7b
+
+    cfg = dataclasses.replace(qwen2_moe_a2_7b.model_config(),
+                              n_layers=QWEN_LAYERS)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", remat="none",
+                                moe=dataclasses.replace(
+                                    cfg.moe, capacity_factor=8.0,
+                                    expert_capacity_factor=8.0))
+    _, batch_fn, _, opt = _lm_setup(dev, cfg, QWEN_B, QWEN_S,
+                                    1 + QWEN_STEPS)
+    return cfg, cfg32, batch_fn, opt
+
+
+def _lm_rule(got, want, tol) -> tuple[float, bool]:
+    """(max |got - want|, whether the argmax agrees wherever want's top-2
+    margin exceeds tol): phase 7's rule, for a rank to report."""
+    import torch
+
+    d = float((got.float() - want.float()).abs().max())
+    top2 = want.float().topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > tol
+    return d, bool(torch.equal(got.argmax(-1)[sure], want.argmax(-1)[sure]))
+
+
+def _mesh_b_refs(dev) -> dict:
+    """Phase 14.5-14.7's single-card references, computed here before the
+    ranks start and freed (moved to the host): long_500k's two f32 steps
+    (`decode_step(kv_mode="local", backend="ref")` on the whole cache)
+    and the rows they wrote; decode_32k's prefill logits and 8 greedy
+    steps under "auto" with their tokens; Qwen's f32 step 0 loss and
+    gradient norm at no-drop capacities."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.transformer import (decode_step, lm_loss,
+                                                serve_prefill)
+    from repro_torch.train.trainer import loss_and_grads
+    from repro_torch.utils.tree import global_norm
+
+    out = {}
+    t0 = time.perf_counter()
+    cfg, cfg32, _, _ = _olmo_mesh_setup(dev)
+    params = _lm_params(cfg32, dev)
+    n_chunk = LONG_S // LONG_CHUNK
+    shape = (cfg.n_layers, 1, LONG_S, cfg.n_kv_heads, cfg.d_head)
+    ck = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+    cv = torch.empty_like(ck)
+    for li in range(cfg.n_layers):
+        for c in range(n_chunk):
+            sl = slice(c * LONG_CHUNK, (c + 1) * LONG_CHUNK)
+            ck[li, :, sl], cv[li, :, sl] = _long_chunk(cfg, li, c, dev)
+    toks = _long_tokens(cfg.vocab)
+    long = []
+    for i, pos in enumerate((LONG_S - 1, LONG_S // 2)):
+        with torch.no_grad():
+            logits, _ = decode_step(
+                params, cfg32, torch.from_numpy(toks[:, i:i + 1]).to(dev),
+                torch.tensor([pos], device=dev),
+                (ck, cv, torch.zeros(1, dtype=torch.int32, device=dev)),
+                kv_mode="local", backend="ref")
+        long.append({"pos": pos, "logits": logits.cpu(),
+                     "k": ck[:, 0, pos].cpu(), "v": cv[:, 0, pos].cpu()})
+    out["long"] = long
+    del ck, cv, params
+    torch.cuda.empty_cache()
+    out["long_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    params = _lm_params(cfg, dev)
+    prompt = _d32_prompt(cfg.vocab, dev)
+    with torch.no_grad():
+        logits, (pk, pv), _ = serve_prefill(params, cfg, prompt)
+        shape = (cfg.n_layers, D32_B, D32_S, cfg.n_kv_heads, cfg.d_head)
+        ck = torch.empty(shape, dtype=cfg.compute_dtype, device=dev)
+        cv = torch.empty_like(ck)
+        ck[:, :, :D32_PROMPT], cv[:, :, :D32_PROMPT] = pk, pv
+        del pk, pv
+        for li in range(cfg.n_layers):
+            for r in range(D32_B):
+                ck[li, r, D32_PROMPT:], cv[li, r, D32_PROMPT:] = _d32_fill(
+                    cfg, li, r, dev)
+        caches = (ck, cv, torch.zeros(D32_B, dtype=torch.int32, device=dev))
+        d32 = {"prefill": logits.float().cpu(), "tokens": [], "steps": []}
+        for i in range(MESH_DECODE_STEPS):
+            tok = logits.argmax(-1)[:, None].int()
+            pos = torch.full((D32_B,), D32_S - MESH_DECODE_STEPS + i,
+                             device=dev)
+            logits, caches = decode_step(params, cfg, tok, pos, caches,
+                                         kv_mode="local", backend="auto")
+            d32["tokens"].append(tok.cpu())
+            d32["steps"].append(logits.float().cpu())
+    out["d32"] = d32
+    del ck, cv, caches, params
+    torch.cuda.empty_cache()
+    out["d32_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    _, q32, batch_fn, _ = _qwen_mesh_setup(dev)
+    params = _lm_params(q32, dev)
+    loss, _, g = loss_and_grads(
+        lambda p, b: lm_loss(p, q32, b["tokens"], b["labels"]), params,
+        batch_fn(0))
+    out["qwen"] = {"loss": float(loss), "grad_norm": float(global_norm(g))}
+    del params, g
+    torch.cuda.empty_cache()
+    out["qwen_s"] = time.perf_counter() - t0
+    return out
+
+
+def _d32_prompt(vocab: int, dev):
+    import torch
+
+    return torch.from_numpy(_lm_batch_tokens(11, D32_B, D32_PROMPT,
+                                             vocab)).to(dev)
+
+
+def _mesh_b_rank(mesh, dev, refs: dict) -> dict:
+    """Phase 14.5-14.7 on each rank of the (2, 2) mesh: OLMo-1B long_500k
+    under "seq_all", decode_32k under "head" (flash_decode in each rank),
+    Qwen1.5-MoE-A2.7B expert-parallel; numbers a rank, checked by the
+    parent."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import (ShardCtx, cache_specs,
+                                                decode_step, lm_loss,
+                                                lm_param_specs, serve_prefill)
+    from repro_torch.train.trainer import init_train_state, make_train_step
+    from repro_torch.utils import sharding
+    from repro_torch.utils.sharding import coordinate, shard_tree
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+    def peak():
+        gib = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
+        return [r[0] for r in _all_ranks(mesh, [gib])]
+
+    def reset_peak():
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    ctx = ShardCtx(mesh=mesh)
+    out = {}
+
+    # 14.5: long_500k, the cache's sequence over every mesh axis
+    t_part = time.perf_counter()
+    reset_peak()
+    cfg, cfg32, _, _ = _olmo_mesh_setup(dev)
+    params = shard_tree(_lm_params(cfg32, dev), lm_param_specs(cfg32, ctx),
+                        mesh)
+    idx, n = coordinate(mesh, ("data", "model"))
+    s_l = LONG_S // n
+    shape = (cfg.n_layers, 1, s_l, cfg.n_kv_heads, cfg.d_head)
+    ck = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+    cv = torch.empty_like(ck)
+    per = s_l // LONG_CHUNK
+    for li in range(cfg.n_layers):
+        for c in range(per):
+            sl = slice(c * LONG_CHUNK, (c + 1) * LONG_CHUNK)
+            ck[li, :, sl], cv[li, :, sl] = _long_chunk(cfg, li, idx * per + c,
+                                                       dev)
+    lens = torch.zeros(1, dtype=torch.int32, device=dev)
+    toks = _long_tokens(cfg.vocab)
+    long = []
+    for i, ref in enumerate(refs["long"]):
+        pos = ref["pos"]
+        loc = pos - idx * s_l
+        mine = 0 <= loc < s_l
+        here = min(max(loc, 0), s_l - 1)
+        before = (ck[:, 0, here].clone(), cv[:, 0, here].clone())
+        sharding.comm_log.reset()
+        with torch.no_grad():
+            (logits, _), ms = timed(lambda: decode_step(
+                params, cfg32, torch.from_numpy(toks[:, i:i + 1]).to(dev),
+                torch.tensor([pos], device=dev), (ck, cv, lens),
+                kv_mode="seq_all", ctx=ctx))
+        want = ref["logits"].to(dev)
+        row = {"pos": pos, "mine": mine, "ms": ms,
+               "err": float((logits - want).abs().max()),
+               "close": bool(torch.allclose(logits, want, rtol=SEQ_TOL,
+                                            atol=SEQ_TOL)),
+               "local_len": int(min(max(pos + 1 - idx * s_l, 0), s_l)),
+               "comm": sharding.comm_log.snapshot()}
+        if mine:
+            # the written row against the parent's: within one bf16 ulp
+            # (2^-7 relative; the f32 sums run in another order on the
+            # mesh), and the share of its values with the same bits
+            got = torch.stack([ck[:, 0, here], cv[:, 0, here]]).float()
+            want = torch.stack([ref["k"], ref["v"]]).to(dev).float()
+            row["row_ulps"] = float(((got - want).abs()
+                                     / (2 ** -7 * want.abs() + 1e-6)).max())
+            row["row_bits_equal"] = float((got == want).float().mean())
+        else:
+            row["untouched"] = bool(torch.equal(ck[:, 0, here], before[0])
+                                    and torch.equal(cv[:, 0, here],
+                                                    before[1]))
+        long.append(row)
+    keys = ("close", "err", "mine", "row_ulps", "untouched", "local_len",
+            "row_bits_equal")
+    fill = {"row_ulps": 0.0, "untouched": True, "row_bits_equal": 0.0}
+    out["long_checks"] = []
+    for row in long:
+        by_rank = _all_ranks(mesh, [row.get(k, fill.get(k)) for k in keys])
+        out["long_checks"].append(
+            {"pos": row["pos"], "ms": row["ms"], "comm": row["comm"],
+             **{k: [r[j] for r in by_rank] for j, k in enumerate(keys)}})
+    # timing: bf16 steps at the last positions, each the last one's argmax
+    tok = torch.from_numpy(toks[:, :1]).to(dev)
+    steps = []
+    for i in range(MESH_DECODE_STEPS):
+        sharding.comm_log.reset()
+        pos = torch.tensor([LONG_S - MESH_DECODE_STEPS + i], device=dev)
+        with torch.no_grad():
+            (logits, _), ms = timed(lambda: decode_step(
+                params, cfg, tok, pos, (ck, cv, lens), kv_mode="seq_all",
+                ctx=ctx))
+        tok = logits.argmax(-1)[:, None].int()
+        steps.append({"ms": ms, "finite": bool(torch.isfinite(logits).all()),
+                      "comm": sharding.comm_log.snapshot()})
+    out["long_steps"] = steps
+    out["long_block"] = tuple(ck.shape)
+    out["long_cache_gb"] = 2 * ck.numel() * ck.element_size() / 1e9
+    del ck, cv, params
+    out["long_peak"] = peak()
+    out["long_s"] = time.perf_counter() - t_part
+
+    # 14.6: decode_32k, kv heads over "model", the prompt from a sharded
+    # prefill; flash_decode in each rank
+    t_part = time.perf_counter()
+    reset_peak()
+    params = shard_tree(_lm_params(cfg, dev), lm_param_specs(cfg, ctx),
+                        mesh)
+    d32 = refs["d32"]
+    prompt = _d32_prompt(cfg.vocab, dev)
+    with torch.no_grad():
+        (logits, (pk, pv), _), ms_pre = timed(lambda: serve_prefill(
+            params, cfg, prompt, ctx=ctx))
+    pre = _lm_rule(logits, d32["prefill"].to(dev), LM_TOL)
+    spec = cache_specs(cfg, ctx, "head")[0]
+    rows, _ = coordinate(mesh, "data")
+    b_l, h_l = pk.shape[1], pk.shape[3]
+    h0 = mesh.get_local_rank("model") * h_l
+    ck = torch.empty((cfg.n_layers, b_l, D32_S, h_l, cfg.d_head),
+                     dtype=cfg.compute_dtype, device=dev)
+    cv = torch.empty_like(ck)
+    ck[:, :, :D32_PROMPT], cv[:, :, :D32_PROMPT] = pk, pv
+    del pk, pv
+    for li in range(cfg.n_layers):
+        for r in range(b_l):
+            k, v = _d32_fill(cfg, li, rows * b_l + r, dev)
+            ck[li, r, D32_PROMPT:] = k[:, h0:h0 + h_l]
+            cv[li, r, D32_PROMPT:] = v[:, h0:h0 + h_l]
+            del k, v
+    caches = (ck, cv, torch.zeros(b_l, dtype=torch.int32, device=dev))
+    steps = []
+    for i in range(MESH_DECODE_STEPS):
+        sharding.comm_log.reset()
+        pos = torch.full((D32_B,), D32_S - MESH_DECODE_STEPS + i, device=dev)
+        with torch.no_grad():
+            (logits, caches), ms = timed(lambda: decode_step(
+                params, cfg, d32["tokens"][i].to(dev), pos, caches,
+                kv_mode="head", backend="auto", ctx=ctx))
+        err, agree = _lm_rule(logits, d32["steps"][i].to(dev), LM_TOL)
+        steps.append({"ms": ms, "err": err, "agree": agree,
+                      "comm": sharding.comm_log.snapshot()})
+    by_rank = _all_ranks(mesh, [pre[0], pre[1],
+                                max(s["err"] for s in steps),
+                                all(s["agree"] for s in steps)])
+    out["d32_checks"] = {k: [r[j] for r in by_rank] for j, k in enumerate(
+        ("prefill_err", "prefill_agree", "err", "agree"))}
+    out["d32"] = {"prefill_ms": ms_pre, "steps": steps,
+                  "block": tuple(ck.shape), "spec": str(spec),
+                  "cache_gb": 2 * ck.numel() * ck.element_size() / 1e9}
+    del ck, cv, caches, params
+    out["d32_peak"] = peak()
+    out["d32_s"] = time.perf_counter() - t_part
+
+    # 14.7: Qwen1.5-MoE expert-parallel, FSDP over data x experts over model
+    t_part = time.perf_counter()
+    reset_peak()
+    qcfg, q32, batch_fn, opt = _qwen_mesh_setup(dev)
+    specs = lm_param_specs(qcfg, ctx, fsdp_axis="data")
+    params = shard_tree(_lm_params(qcfg, dev), specs, mesh)
+    if cuda:
+        torch.cuda.empty_cache()
+    # step 0 in f32 at no-drop capacities: a train step whose loss and
+    # gradient norm are held against one card's (the lr is 0 at step 0,
+    # so the parameters stay as drawn), then the bf16 steps
+    state = init_train_state(params, opt)
+    moe.drop_log.on = True
+    q = {"steps": []}
+    for i in range(1 + QWEN_STEPS):
+        sharding.comm_log.reset()
+        moe.drop_log.reset()
+        c = q32 if i == 0 else qcfg
+        step = make_train_step(
+            lambda p, b, c=c: lm_loss(p, c, b["tokens"], b["labels"], ctx),
+            opt)
+        (state, m), ms = timed(lambda: step(state, batch_fn(i)))
+        # each rank's dropped slots in the step's forward
+        q["steps"].append({"loss": float(m["loss"]),
+                           "grad_norm": float(m["grad_norm"]), "ms": ms,
+                           "comm": sharding.comm_log.snapshot(),
+                           "dropped": [dict(zip(("slots", "send", "expert"),
+                                                map(int, r)))
+                                       for r in _all_ranks(mesh, list(
+                                           moe.drop_log.snapshot().values()))]
+                           })
+    q["f32"] = q["steps"].pop(0)
+    moe.drop_log.on = False
+    # one decode step of the trained model under "head", through the
+    # expert-parallel FFN, on a 64-slot cache drawn N(0, 1)
+    s_c = 64
+    b_l = QWEN_B // mesh.size(0)
+    h_l = qcfg.n_kv_heads // mesh.size(1)
+    shape = (qcfg.n_layers, b_l, s_c, h_l, qcfg.d_head)
+    ck = _drawn(shape, 3_000_017 + mesh.get_rank(), dev, torch.bfloat16)
+    cv = _drawn(shape, 4_000_037 + mesh.get_rank(), dev, torch.bfloat16)
+    tok = torch.from_numpy(_lm_batch_tokens(13, QWEN_B, 1, qcfg.vocab)).to(
+        dev)
+    with torch.no_grad():
+        (logits, _), ms = timed(lambda: decode_step(
+            state["params"], qcfg, tok, torch.full((QWEN_B,), s_c - 1,
+                                                   device=dev),
+            (ck, cv, torch.zeros(b_l, dtype=torch.int32, device=dev)),
+            kv_mode="head", backend="auto", ctx=ctx))
+    q["decode"] = {"shape": tuple(logits.shape), "ms": ms,
+                   "finite": bool(torch.isfinite(logits).all()),
+                   "block": tuple(ck.shape)}
+    del state, params, step, ck, cv
+    q["peak"] = peak()
+    q["s"] = time.perf_counter() - t_part
+    out["qwen"] = q
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _lm_batch_tokens(step: int, b: int, s: int, vocab: int):
+    from repro_torch.data.synthetic import lm_batch
+
+    return lm_batch(step, b, s, vocab, seed=SEED)[0]
+
+
 def mesh_training(dev, card, reset_counts, read_counts) -> dict:
-    """Phase 14: the sharded mesh on one card.  A single-card f32 run of
-    OLMo-1B's step 0 first (freed before the ranks start), then 4 ranks
-    spawned as a (2, 2) mesh on the card, joined over gloo (NCCL refuses
-    two ranks on one device), then 2 ranks as a (1, 2) mesh that restore
-    the 4-rank checkpoint.  Returns the six kernels' launches in the
-    ranks (`l2_topk`'s on the sharded shortlist, the others 0) and in this
-    process (all 0)."""
+    """Phase 14: the sharded mesh on one card.  Single-card f32 runs of
+    OLMo-1B's step 0 and mesh B's references first (freed before the
+    ranks start), then 4 ranks spawned as a (2, 2) mesh on the card,
+    joined over gloo (NCCL refuses two ranks on one device), then 2 ranks
+    as a (1, 2) mesh that restore the 4-rank checkpoint.  Returns the six
+    kernels' launches in the ranks (`l2_topk`'s on the sharded shortlist,
+    `flash_decode`'s on "head" decode, the others 0) and in this process
+    (all 0)."""
     import shutil
     import tempfile
 
@@ -2971,7 +3435,7 @@ def mesh_training(dev, card, reset_counts, read_counts) -> dict:
     _, cfg32, batch_fn, _ = _olmo_mesh_setup(dev)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    params = _olmo_params(cfg32, dev)
+    params = _lm_params(cfg32, dev)
     loss, _, g = loss_and_grads(
         lambda p, b: lm_loss(p, cfg32, b["tokens"], b["labels"]), params,
         batch_fn(0))
@@ -2979,13 +3443,16 @@ def mesh_training(dev, card, reset_counts, read_counts) -> dict:
     del params, g
     torch.cuda.empty_cache()
     t_ref = time.perf_counter() - t0
+    # mesh B's references (their launches are not the mesh path's)
+    refs_b = _mesh_b_refs(dev)
+    reset_counts()
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=root) as rdv:
         r4 = run_ranks(_mesh4_rank, (2, 2), device=dev.type,
                        init_method=f"file://{rdv}/init", args=(
-                           str(root / "ckpt"), time.time()), timeout=400,
-                       threads=2)
+                           str(root / "ckpt"), time.time(), refs_b),
+                       timeout=400, threads=2)
     t4 = time.perf_counter() - t0
     gb = (root / "ckpt" / f"ckpt_{MESH_STEPS:08d}.npz").stat().st_size / 1e9
     t0 = time.perf_counter()
@@ -3034,13 +3501,18 @@ def mesh_training(dev, card, reset_counts, read_counts) -> dict:
     if not abs(dp["loss_dp"] - dp["loss_ref"]) < 0.05:
         raise AssertionError(f"compressed DP loss {dp['loss_dp']} vs "
                              f"{dp['loss_ref']}: not within 0.05")
+    _mesh_b_checks(r4["b"], refs_b)
     ranks = [dict(zip(kernel_counters(), map(int, row)))
              for row in r4["launches"]]
-    # the sharded shortlist is the one mesh path that reaches a kernel
-    if (any(v for r in ranks for k, v in r.items() if k != "l2_topk")
-            or not all(r["l2_topk"] for r in ranks) or any(parent.values())):
+    # the mesh paths that reach a kernel: the sharded shortlist (l2_topk)
+    # and "head" decode (flash_decode)
+    on_path = ("l2_topk", "flash_decode")
+    if (any(v for r in ranks for k, v in r.items() if k not in on_path)
+            or not all(r[k] for r in ranks for k in on_path)
+            or any(parent.values())):
         raise AssertionError(f"phase 14's launches: ranks {ranks} (l2_topk "
-                             f"on the sharded shortlist only), parent "
+                             f"on the sharded shortlist, flash_decode on "
+                             f"\"head\" decode, nothing else), parent "
                              f"{parent} (none)")
     kinds = sorted({k for s in [f32, *r4["steps"]]
                     for k in s["comm"]["calls"]})
@@ -3095,23 +3567,148 @@ def mesh_training(dev, card, reset_counts, read_counts) -> dict:
         f"(int8_ef, (4,) data mesh, config c, reduced): loss after 10 steps "
         f"{dp['loss_dp']:.5f} vs make_train_step {dp['loss_ref']:.5f} "
         f"(|diff| {abs(dp['loss_dp'] - dp['loss_ref']):.5f} < 0.05)")
+    _mesh_b_log(r4["b"], refs_b, ranks, card)
     log(f"phase 14 took {time.perf_counter() - t_phase:.1f} s | {card}")
     return {"ranks": ranks, "parent": parent}
+
+
+def _mesh_b_checks(b: dict, refs: dict) -> None:
+    """Phase 14.5-14.7's checks on rank 0's report (each number in it
+    gathered from every rank where it differs by rank)."""
+    for row in b["long_checks"]:
+        if not all(row["close"]):
+            raise AssertionError(f"long_500k at {row['pos']}: logits by rank "
+                                 f"{row['err']} beyond rtol / atol "
+                                 f"{SEQ_TOL} of the single card's")
+        if sum(row["mine"]) != 1 or max(row["row_ulps"]) > 1.0 \
+                or not all(row["untouched"]):
+            raise AssertionError(f"long_500k at {row['pos']}: the row is "
+                                 f"written by ranks {row['mine']}, "
+                                 f"{max(row['row_ulps'])} bf16 ulps from "
+                                 f"the parent's; others untouched "
+                                 f"{row['untouched']}")
+    if not all(s["finite"] for s in b["long_steps"]):
+        raise AssertionError("long_500k bf16 steps: logits not finite")
+    d = b["d32_checks"]
+    if max(d["prefill_err"]) > LM_TOL or not all(d["prefill_agree"]) \
+            or max(d["err"]) > LM_TOL or not all(d["agree"]):
+        raise AssertionError(f"decode_32k under head: prefill logits by rank "
+                             f"{d['prefill_err']}, steps {d['err']}, beyond "
+                             f"{LM_TOL} of the single card's (or greedy "
+                             f"tokens differ: {d['prefill_agree']}, "
+                             f"{d['agree']})")
+    q, ref = b["qwen"], refs["qwen"]
+    f32 = q["f32"]
+    if abs(f32["loss"] - ref["loss"]) > 1e-4 * abs(ref["loss"]) \
+            or abs(f32["grad_norm"] - ref["grad_norm"]) \
+            > 1e-3 * ref["grad_norm"]:
+        raise AssertionError(f"qwen expert-parallel f32 step 0: loss "
+                             f"{f32['loss']} vs {ref['loss']} (rtol 1e-4), "
+                             f"grad norm {f32['grad_norm']} vs "
+                             f"{ref['grad_norm']} (rtol 1e-3)")
+    if any(r["send"] or r["expert"] for r in f32["dropped"]):
+        raise AssertionError(f"qwen f32 step 0 dropped slots at the no-drop "
+                             f"capacities: {f32['dropped']}")
+    losses = [s["loss"] for s in q["steps"]]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"qwen expert-parallel bf16 losses: {losses}")
+    if not q["decode"]["finite"]:
+        raise AssertionError("qwen head decode: logits not finite")
+
+
+def _comm(c) -> str:
+    return ", ".join(f"{k} {c['calls'][k]} ({c['bytes'][k] / 1e6:.3f} MB)"
+                     for k in sorted(c["calls"]))
+
+
+def _mesh_b_log(b: dict, refs: dict, ranks, card) -> None:
+    lc = b["long_checks"]
+    med = statistics.median(s["ms"] for s in b["long_steps"])
+    log(f"mesh long_500k: olmo-1b full width, {MESH_LAYERS} of 16 layers "
+        f"(reduced), B=1, {LONG_S:,} positions, kv_mode seq_all over the "
+        f"(2, 2) mesh: bf16 cache {b['long_cache_gb'] * 4:.2f} GB, each "
+        f"rank's block {b['long_block']} ({b['long_cache_gb']:.2f} GB; "
+        f"synthetic, drawn {LONG_CHUNK:,} positions a seed) | single-card "
+        f"f32 reference {refs['long_s']:.1f} s | "
+        + " | ".join(
+            f"f32 step at {r['pos']:,}: written by rank {r['mine'].index(1)} "
+            f"(local lengths {r['local_len']}), row within "
+            f"{max(r['row_ulps']):.3f} bf16 ulp of the single card's "
+            f"({max(r['row_bits_equal']):.4f} of its values bitwise), "
+            f"logits max |mesh - card| by rank "
+            + ", ".join(f"{e:.3g}" for e in r["err"])
+            + f" (rtol / atol {SEQ_TOL}), {r['ms']:.1f} ms"
+            for r in lc)
+        + f" | {card}")
+    log(f"  long_500k bf16 steps (rank 0, gloo on one card, not a figure "
+        f"of NCCL): median {med:.1f} ms ("
+        + ", ".join(f"{s['ms']:.1f}" for s in b["long_steps"])
+        + f") | collectives a step on rank 0: "
+        f"{_comm(b['long_steps'][-1]['comm'])} | peak GiB by rank: "
+        + ", ".join(f"{v:.2f}" for v in b["long_peak"])
+        + f" | {b['long_s']:.1f} s | {card}")
+    d = b["d32"]
+    dc = b["d32_checks"]
+    med = statistics.median(s["ms"] for s in d["steps"])
+    log(f"mesh decode_32k: olmo-1b full width, {MESH_LAYERS} of 16 layers "
+        f"(reduced), B={D32_B} x {D32_S:,} slots, kv_mode head over the (2, "
+        f"2) mesh (each rank's block {d['block']}, {d['cache_gb']:.2f} GB, "
+        f"{d['cache_gb'] * 4:.2f} GB in all): sharded prefill of "
+        f"{D32_PROMPT} tokens {d['prefill_ms']:.1f} ms, logits max |mesh - "
+        f"card| by rank " + ", ".join(f"{e:.3g}" for e in dc["prefill_err"])
+        + f" (tol {LM_TOL}); {MESH_DECODE_STEPS} steps under auto at "
+        f"{D32_S - MESH_DECODE_STEPS:,}+: max |mesh - card| by rank "
+        + ", ".join(f"{e:.3g}" for e in dc["err"])
+        + f", greedy tokens agree; step median {med:.1f} ms on rank 0 ("
+        + ", ".join(f"{s['ms']:.1f}" for s in d["steps"])
+        + f"), collectives a step {_comm(d['steps'][-1]['comm'])}; "
+        f"flash_decode launches by rank "
+        f"{[r['flash_decode'] for r in ranks]} | peak GiB by rank: "
+        + ", ".join(f"{v:.2f}" for v in b["d32_peak"])
+        + f" | single-card reference {refs['d32_s']:.1f} s, mesh "
+        f"{b['d32_s']:.1f} s | {card}")
+    q, ref = b["qwen"], refs["qwen"]
+    f32 = q["f32"]
+    a2a = [s["comm"]["bytes"].get("all_to_all", 0) / 1e6 for s in q["steps"]]
+    log(f"mesh qwen2-moe-a2.7b: full width, {QWEN_LAYERS} of 24 layers "
+        f"(reduced), expert-parallel over model x FSDP over data, "
+        f"B={QWEN_B} x {QWEN_S}, {QWEN_STEPS} bf16 step(s) (reduced from 4) "
+        f"| "
+        f"f32 step 0 (remat none) at no-drop capacities 8.0 / 8.0: loss {f32['loss']:.6f} vs single card {ref['loss']:.6f} (rel "
+        f"{abs(f32['loss'] - ref['loss']) / abs(ref['loss']):.2e}), grad "
+        f"norm {f32['grad_norm']:.6f} vs {ref['grad_norm']:.6f} (rel "
+        f"{abs(f32['grad_norm'] - ref['grad_norm']) / ref['grad_norm']:.2e})"
+        f", {f32['ms']:.1f} ms, no slot dropped | bf16 steps at 1.25 / 1.5: "
+        + ", ".join(f"loss {s['loss']:.4f} ({s['ms']:.1f} ms)"
+                    for s in q["steps"])
+        + f"; all_to_all MB a step on rank 0: "
+        + ", ".join(f"{v:.1f}" for v in a2a)
+        + f"; collectives of the last step on rank 0: "
+        f"{_comm(q['steps'][-1]['comm'])} | dropped slots by rank in each "
+        f"step's forward: "
+        + "; ".join(", ".join(f"{r['send'] + r['expert']} of {r['slots']} "
+                              f"(send {r['send']}, expert {r['expert']})"
+                              for r in s["dropped"]) for s in q["steps"])
+        + f" | head decode step: logits {q['decode']['shape']}, block "
+        f"{q['decode']['block']}, {q['decode']['ms']:.1f} ms | peak GiB by "
+        f"rank: " + ", ".join(f"{v:.2f}" for v in q["peak"])
+        + f" | single-card reference {refs['qwen_s']:.1f} s, mesh "
+        f"{q['s']:.1f} s | {card}")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
                     help="corpus size of the query path (default: SIFT1M)")
-    ap.add_argument("--build-n", type=int, default=100_000,
+    ap.add_argument("--build-n", type=int, default=25_000,
                     help="corpus size of the construction path (default: "
-                         "a tenth of SIFT1M; the host-Python refine and nav "
-                         "graph grow faster than N)")
-    ap.add_argument("--disk-n", type=int, default=20_000,
+                         "a fortieth of SIFT1M; the host-Python refine and "
+                         "nav graph grow faster than N)")
+    ap.add_argument("--disk-n", type=int, default=5_000,
                     help="corpus size of phase 8's comparison of BAMG, "
                          "DiskANN and Starling built on the card, of phase "
                          "9's BAMG fleet and of phase 10's deployment")
-    ap.add_argument("--inserts", type=int, default=1000,
+    ap.add_argument("--inserts", type=int, default=250,
                     help="vectors phase 10 inserts into the fresh index "
                          "(5%% of --disk-n's BAMG)")
     args = ap.parse_args(argv)
@@ -3206,6 +3803,8 @@ def main(argv=None) -> int:
             log("  ptxas: " + line.strip().removeprefix("ptxas info    : "))
 
     # ---- 3. kernels against their plain versions --------------------------
+    t_phase = time.perf_counter()
+
     def call_ms(fn, iters=50, warmup=5) -> float:
         """Median ms per call on the stream: a pair of CUDA events around
         each of `iters` calls issued back to back, so the host's dispatch
@@ -3757,7 +4356,10 @@ def main(argv=None) -> int:
     del adj, codes, nb, cand_codes, pool, got, want, kw
     torch.cuda.empty_cache()
 
+    log(f"phase 3 took {time.perf_counter() - t_phase:.1f} s | {card}")
+
     # ---- 4. main path at full size ----------------------------------------
+    t_phase = time.perf_counter()
     t0 = time.perf_counter()
     ds = paper_dataset("sift-like", n=n_main, nq=1024, seed=SEED, device=dev)
     t_data = time.perf_counter() - t0
@@ -3862,6 +4464,7 @@ def main(argv=None) -> int:
         f"resident index {eng.memory_bytes() / 2 ** 30:.3f} GiB")
     del eng, arrays, adj, exact
     torch.cuda.empty_cache()
+    log(f"phase 4 took {time.perf_counter() - t_phase:.1f} s | {card}")
 
     # ---- 9. the serving fleet on phase 4's corpus ------------------------
     fleet_launches = fleet_serving(
@@ -3872,6 +4475,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- 5. construction path: build a BAMG on the card, serve it ----------
+    t_phase = time.perf_counter()
     n_build = args.build_n
     t0 = time.perf_counter()
     ds = paper_dataset("sift-like", n=n_build, nq=1024, seed=SEED, device=dev)
@@ -4000,6 +4604,7 @@ def main(argv=None) -> int:
         "never returned")
     del eng
     torch.cuda.empty_cache()
+    log(f"phase 5 took {time.perf_counter() - t_phase:.1f} s | {card}")
 
     # ---- 8. the disk-resident index on phase 5's BAMG ---------------------
     disk_launches, (dd, small_idx) = disk_index(
@@ -4078,8 +4683,9 @@ def main(argv=None) -> int:
         "no hand-written kernel lies on the GNN path): "
         + json.dumps(gnn_launches))
     log("phase 14 launches, in each rank and in this process (not in the "
-        "kernels line's launches; on the mesh path only the sharded DIN "
-        "shortlist reaches a kernel, l2_topk): " + json.dumps(mesh_launches))
+        "kernels line's launches; on the mesh path the sharded DIN "
+        "shortlist reaches l2_topk and \"head\" decode flash_decode): "
+        + json.dumps(mesh_launches))
     def on_card(t):
         if t is None:
             return None

@@ -1,6 +1,5 @@
 """Attention: chunked causal GQA prefill + KV-cache decode (port of
-`repro.models.attention`, the single-device path: training, prefill and
-decode).
+`repro.models.attention`).
 
   * `causal_attention`       -- chunked (flash-style) online-softmax loop
                                 over KV blocks, plain PyTorch, as plain jnp
@@ -11,9 +10,15 @@ decode).
                                 `kernels.flash_decode` (the CUDA kernel for
                                 CUDA tensors under "auto").
 
-Supports GQA/MQA (h = g * h_kv) and sliding-window attention.  The
-sequence-sharded decode (`_decode_partial`, `decode_attention_seqsharded`,
-`shard_lengths`) waits for the serving-fleet slice.
+  * `decode_attention_seqsharded` -- one new token against a cache whose
+                                sequence is sharded over mesh axes: each
+                                rank's partial softmax (`_decode_partial`)
+                                merged by a log-sum-exp over the ranks
+                                (a max, then one sum of (B, H, Dh + 1)),
+                                plain PyTorch, as plain jnp in the
+                                reference (it reaches no Pallas kernel).
+
+Supports GQA/MQA (h = g * h_kv) and sliding-window attention.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.distances import f32_matmul
 from ..kernels.flash_decode import flash_decode
+from ..utils.sharding import all_reduce
 
 NEG_INF = -1e30
 
@@ -116,3 +122,55 @@ def decode_attention_local(q: torch.Tensor, cache_k: torch.Tensor,
     """Per-device decode attention. q (B, H, Dh); caches (B, S, Hkv, Dh);
     returns (B, H, Dh) f32."""
     return flash_decode(q, cache_k, cache_v, cache_len, backend=backend)
+
+
+def _decode_partial(q, cache_k, cache_v, cache_len, scale):
+    """Unnormalized local attention + softmax stats for a cross-shard
+    merge.  q (B, H, Dh); caches (B, S, Hkv, Dh); cache_len (B,) this
+    shard's valid length.  Returns (acc (B, H, Dh) = sum_j exp(s_j - m)
+    v_j, m (B, H), l (B, H)), f32.  Masked scores are the finite NEG_INF:
+    a shard with no valid row gives m = NEG_INF, l = 0, acc = 0, which
+    the merge weighs by exp(NEG_INF - m_glob) = 0 (-inf would give NaN)."""
+    b, h, dh = q.shape
+    s, hkv = cache_k.shape[1], cache_k.shape[2]
+    g = h // hkv
+    qf = q.float().reshape(b, hkv, g, dh) * scale
+    kf = cache_k.float()
+    vf = cache_v.float()
+    with f32_matmul():
+        scores = torch.einsum("bngd,bsnd->bngs", qf, kf)
+        ok = (torch.arange(s, device=q.device)[None, :]
+              < cache_len.to(q.device)[:, None])[:, None, None, :]
+        scores = torch.where(ok, scores, NEG_INF)
+        m = scores.amax(-1)                                  # (B, Hkv, G)
+        p = torch.where(ok, torch.exp(scores - m[..., None]), 0.0)
+        l = p.sum(-1)
+        acc = torch.einsum("bngs,bsnd->bngd", p, vf)
+    return acc.reshape(b, h, dh), m.reshape(b, h), l.reshape(b, h)
+
+
+def decode_attention_seqsharded(q, cache_k, cache_v, cache_len, mesh, axes,
+                                scale: Optional[float] = None):
+    """Decode attention with the KV cache sequence-sharded over the mesh
+    `axes` (every rank of them calls, each with its slice and its *local*
+    valid length `cache_len`).  Each rank's partial softmax merges with a
+    log-sum-exp: the max of m over the ranks, then one sum of (l * w,
+    acc * w), w = exp(m - m_glob).  Returns (B, H, Dh) in q's dtype."""
+    dh = q.shape[-1]
+    scale = dh ** -0.5 if scale is None else scale
+    acc, m, l = _decode_partial(q, cache_k, cache_v, cache_len, scale)
+    m_glob = all_reduce(m, mesh, axes, op="max")             # (B, H)
+    w = torch.exp(m - m_glob)
+    # l and acc ride in one sum: (B, H, Dh + 1)
+    tot = all_reduce(torch.cat([acc * w[..., None], (l * w)[..., None]], -1),
+                     mesh, axes)
+    acc_glob, l_glob = tot[..., :dh], tot[..., dh]
+    return (acc_glob / l_glob.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+
+def shard_lengths(total_len: torch.Tensor, shard_idx,
+                  shard_size: int) -> torch.Tensor:
+    """Local valid length of shard `shard_idx` (of `shard_size` rows) for
+    a prefix of `total_len` rows."""
+    start = shard_idx * shard_size
+    return torch.clamp(total_len - start, 0, shard_size)

@@ -14,8 +14,9 @@ kernel only under a mesh with kv_mode="head"; on one card that is the
 same path with tp = 1), on CPU tensors the plain version.  `decode_step`
 writes the new token's K/V into the caches in place and returns them.
 
-MoE layers (`cfg.moe`) run `models.moe.moe_ffn` on one device; training
-adds its aux loss to the loss, serving drops it, as the reference does.
+MoE layers (`cfg.moe`) run `models.moe.moe_ffn`, expert-parallel over
+"model" under a mesh; training adds its aux loss to the loss, serving
+drops it, as the reference does.
 
 Training (`lm_loss` -> `forward_hidden` -> `_layer_scan`) loops over the
 layers in Python, each layer's slice of the stacked weights an `unbind`
@@ -45,9 +46,22 @@ reference's scan; the reference's `constrain` points are where these
 collectives leave each activation (q / k / v and the FFN hidden on local
 heads, the residual stream whole on every "model" rank, logits on local
 vocab).  Gradients reach each leaf's block through the collectives'
-backward (`utils.sharding.compute_view`).  Sequence-sharded decode
-(kv_mode "seq" / "seq_all", `cache_specs`) and MoE over a mesh wait for
-mesh B (ROADMAP Queue 1 item 2); serving takes no `ctx`.
+backward (`utils.sharding.compute_view`).
+
+Sharded serving: `serve_prefill(ctx=)` and `decode_step(ctx=)` take the
+global batch's tokens and positions (the same on every rank) and each
+rank's cache block, laid out as `cache_specs(cfg, ctx, kv_mode)` says,
+and return the full (B, V) logits on every rank.  "head": each rank
+holds its batch rows and its n_kv_heads / tp kv heads and runs
+`decode_attention_local` (the kernel on CUDA tensors under "auto"), as
+`serve_prefill` lays its cache out.  "seq" (the cache's sequence over
+"model", its rows over the batch axes) and "seq_all" (the sequence over
+every mesh axis, every rank all B rows): q and the new k / v whole on
+every rank (this rank's columns of the projections, gathered over
+"model"; n_kv_heads need not divide tp), the new row written by the one
+rank whose slice holds it, and `attention.decode_attention_seqsharded`'s
+log-sum-exp merge; wo stays row-parallel (each rank its q_dim slice of
+the merged heads).
 """
 from __future__ import annotations
 
@@ -63,7 +77,8 @@ from .._device import resolve_device, to_device
 from ..core.distances import f32_matmul
 from ..utils import sharding
 from ..utils.sharding import P, copy_to, reduce_from
-from .attention import causal_attention, decode_attention_local
+from .attention import (causal_attention, decode_attention_local,
+                        decode_attention_seqsharded, shard_lengths)
 from .layers import (act_fn, apply_norm, apply_rope, dense_init, embed_init,
                      norm_param, softmax_xent_chunked)
 from .moe import MoEConfig, moe_ffn
@@ -457,8 +472,12 @@ def _ffn(x, lp, cfg: LMConfig, ctx=None):
     (out, aux loss f32 scalar; 0 for a dense layer)."""
     h = apply_norm(cfg.norm, x, lp["mlp_norm"])
     if cfg.moe:
-        return moe_ffn(h, lp, cfg.moe, activation=cfg.activation,
-                       mesh=ctx.mesh if ctx is not None else None)
+        if not _sharded(ctx):
+            return moe_ffn(h, lp, cfg.moe, activation=cfg.activation)
+        return moe_ffn(h, lp, cfg.moe, mesh=ctx.mesh,
+                       batch_axes=ctx.batch_axes,
+                       model_axis=ctx.model_axis if ctx.tp > 1 else None,
+                       activation=cfg.activation)
     h = _to_model(h, ctx)
     g = h @ lp["w_gate"].to(h.dtype)
     i = h @ lp["w_in"].to(h.dtype)
@@ -646,25 +665,81 @@ def init_cache(cfg: LMConfig, batch: int, seq_len: int, dtype=None,
             torch.zeros((batch,), dtype=torch.int32, device=dev))
 
 
-def serve_prefill(params, cfg: LMConfig, tokens):
+def cache_specs(cfg: LMConfig, ctx: Optional[ShardCtx], mode: str):
+    """Specs of (cache_k, cache_v, lengths) under `ctx`'s mesh (None each
+    without one).  mode: "head" -- kv heads over model (n_kv_heads % tp
+    == 0); "seq" -- the cache's sequence over model; "seq_all" -- the
+    sequence over every mesh axis (batch 1 cells), lengths replicated."""
+    if not _sharded(ctx):
+        return None, None, None
+    ba = ctx.batch_axes
+    mdl = ctx.model_axis
+    if mode == "head":
+        spec = P(None, ba, None, mdl, None)
+    elif mode == "seq":
+        spec = P(None, ba, mdl, None, None)
+    elif mode == "seq_all":
+        spec = P(None, None, tuple(ba) + (mdl,), None, None)
+    else:
+        raise ValueError(mode)
+    len_spec = P(ba) if mode != "seq_all" else P(None)
+    return spec, spec, len_spec
+
+
+def _serve_weights(params, cfg: LMConfig, ctx):
+    """(embedding, final norm, per-layer weights) for serving: the
+    compute-dtype copies, under a mesh this rank's compute blocks (the
+    layers as `utils.sharding.layer_views` callables)."""
+    layers = compute_cast(params["layers"], cfg.compute_dtype)
+    if not _sharded(ctx):
+        return params["embed"], params["final_norm"], _unstack(layers)
+    return (ctx.view(params["embed"]), ctx.view(params["final_norm"]),
+            sharding.layer_views(layers, ctx.mesh, ctx.batch_axes))
+
+
+def _whole_logits(logits, ctx, split: bool):
+    """(B, V) logits on every rank from this rank's (rows, vocab block):
+    gathered over "model", then over the batch axes where the rows are
+    split (innermost axis first)."""
+    if not _sharded(ctx):
+        return logits
+    logits = sharding.all_gather(logits, ctx.mesh, ctx.model_axis,
+                                 logits.dim() - 1)
+    if split:
+        for axis in reversed(ctx.batch_axes):
+            logits = sharding.all_gather(logits, ctx.mesh, axis, 0)
+    return logits
+
+
+def serve_prefill(params, cfg: LMConfig, tokens,
+                  ctx: Optional[ShardCtx] = None):
     """Prefill: (B, S) -> (last-token logits (B, V), (ck, cv), lengths),
     with caches (L, B, S_c, Hkv, Dh) in the compute dtype.  Under a sliding
     window the cache keeps the trailing window in ring order (slot =
     position % S_c), so that `decode_step`'s ring writes land consistently
-    after wraparound."""
+    after wraparound.  Under a mesh, tokens are the global batch (the
+    same on every rank); the logits come back whole on every rank and
+    the caches and lengths as this rank's "head" block (its batch rows,
+    its kv heads)."""
     dev = params["embed"].device
     tokens = to_device(tokens, dev)
+    split = False
+    if _sharded(ctx):
+        _check_tp(cfg, ctx)
+        tokens, copies = ctx.batch_rows(tokens)
+        split = copies == 1 and ctx.axis_prod(ctx.batch_axes) > 1
     b, s = tokens.shape
     sc = cache_len_for(cfg, s)
-    layers = compute_cast(params["layers"], cfg.compute_dtype)
+    embed, final_norm, layers = _serve_weights(params, cfg, ctx)
     positions = torch.arange(s, device=dev)[None].expand(b, s)
-    ck = torch.empty((cfg.n_layers, b, sc, cfg.n_kv_heads, cfg.d_head),
-                     dtype=cfg.compute_dtype, device=dev)
+    ck = torch.empty((cfg.n_layers, b, sc, cfg.n_kv_heads // _tp(ctx),
+                      cfg.d_head), dtype=cfg.compute_dtype, device=dev)
     cv = torch.empty_like(ck)
     with f32_matmul():
-        x = embed_lookup(params["embed"], tokens, cfg)
-        for li, lp in enumerate(_unstack(layers)):
-            x, _, (k, v) = layer_forward(x, lp, cfg, positions)
+        x = embed_lookup(embed, tokens, cfg, ctx)
+        for li, lp in enumerate(layers):
+            x, _, (k, v) = layer_forward(x, lp() if callable(lp) else lp,
+                                         cfg, positions, ctx)
             if sc < s:
                 k, v = k[:, s - sc:], v[:, s - sc:]
                 off = (s - sc) % sc
@@ -672,10 +747,10 @@ def serve_prefill(params, cfg: LMConfig, tokens):
                     k = torch.roll(k, off, dims=1)
                     v = torch.roll(v, off, dims=1)
             ck[li], cv[li] = k, v
-        x = apply_norm(cfg.norm, x, params["final_norm"])
-        logits = lm_head_logits(params, cfg, x[:, -1:])[:, 0]
+        x = apply_norm(cfg.norm, x, final_norm)
+        logits = lm_head_logits(params, cfg, x[:, -1:], ctx)[:, 0]
     lengths = torch.full((b,), sc, dtype=torch.int32, device=dev)
-    return logits, (ck, cv), lengths
+    return _whole_logits(logits, ctx, split), (ck, cv), lengths
 
 
 def _write_cache_local(ck, cv, k_new, v_new, write_pos):
@@ -687,42 +762,114 @@ def _write_cache_local(ck, cv, k_new, v_new, write_pos):
     cv[rows, write_pos] = v_new[:, 0].to(cv.dtype)
 
 
+def _qkv_whole(x, lp, cfg: LMConfig, positions, ctx):
+    """q (B, 1, H, Dh), k and v (B, 1, Hkv, Dh) whole on every rank: this
+    rank's columns of the three projections, gathered over "model" in one
+    collective, then RoPE on whole heads."""
+    b, s, _ = x.shape
+    h = _to_model(apply_norm(cfg.norm, x, lp["attn_norm"]), ctx)
+    parts = [h @ lp[w].to(h.dtype) for w in ("wq", "wk", "wv")]
+    widths = [p.shape[-1] for p in parts]
+    y = torch.cat(parts, -1)[None]
+    if ctx.tp > 1:
+        y = sharding.all_gather(y, ctx.mesh, ctx.model_axis, 0)
+    # (tp, B, S, q + 2 kv local) -> each projection's tp blocks in order
+    q, k, v = (t.movedim(0, -2).reshape(b, s, -1)
+               for t in y.split(widths, -1))
+    q = apply_rope(q.reshape(b, s, cfg.n_heads, cfg.d_head), positions,
+                   cfg.rope_theta)
+    k = apply_rope(k.reshape(b, s, cfg.n_kv_heads, cfg.d_head), positions,
+                   cfg.rope_theta)
+    return q, k, v.reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+
+
+def _decode_seqsharded(q1, k_new, v_new, ck, cv, write_pos, new_len,
+                       ctx: ShardCtx, seq_axes: tuple):
+    """This rank's slice (B, S_l, Hkv, Dh) of a sequence-sharded cache:
+    the new row written in place where the slice holds write_pos (the
+    others write their current row back), then the distributed
+    flash-decode merge over `seq_axes`.  Returns (B, H, Dh)."""
+    s_l = ck.shape[1]
+    idx, _ = sharding.coordinate(ctx.mesh, seq_axes)
+    start = idx * s_l
+    loc = (write_pos - start).clamp(0, s_l - 1)
+    mine = ((write_pos >= start) & (write_pos < start + s_l))[:, None, None]
+    rows = torch.arange(ck.shape[0], device=ck.device)
+    for c, new in ((ck, k_new), (cv, v_new)):
+        c[rows, loc] = torch.where(mine, new[:, 0].to(c.dtype), c[rows, loc])
+    local_len = shard_lengths(new_len, idx, s_l)
+    return decode_attention_seqsharded(q1, ck, cv, local_len, ctx.mesh,
+                                       seq_axes)
+
+
 def decode_step(params, cfg: LMConfig, tokens, positions, caches,
-                kv_mode: str = "local", backend: str = "auto"):
+                kv_mode: str = "local", backend: str = "auto",
+                ctx: Optional[ShardCtx] = None):
     """One decode step.
 
     tokens (B, 1) int; positions (B,) absolute positions of the new token;
     caches = (ck, cv, lengths) with ck/cv (L, B, Sc, Hkv, Dh), contiguous.
-    kv_mode "local" or "head" (one card: the same path); backend goes to
-    `flash_decode` ("auto": the kernel on CUDA tensors).  Returns (logits
-    (B, V), caches): ck and cv are written in place (row position % Sc of
-    every layer), lengths are new.
+    Without a mesh every kv_mode is the single-device path ("head" on
+    one card is it with tp = 1); backend goes to `flash_decode` ("auto":
+    the kernel on CUDA tensors).  Under `ctx`'s mesh, tokens and
+    positions are the global batch and the caches this rank's block as
+    `cache_specs(cfg, ctx, kv_mode)` lays them out (kv_mode "head",
+    "seq" or "seq_all"; module docstring); backend goes to "head"'s
+    `flash_decode`.  Returns (logits (B, V), caches): ck and cv are
+    written in place (row position % Sc of every layer, Sc the whole
+    cache's length), lengths are new (this rank's rows).
     """
-    if kv_mode in ("seq", "seq_all"):
-        raise NotImplementedError(
-            f"kv_mode={kv_mode!r} (a sequence-sharded cache) waits for mesh "
-            f"B (ROADMAP Queue 1 item 2, the second part of 7.3)")
-    if kv_mode not in ("local", "head"):
+    if kv_mode not in ("local", "head", "seq", "seq_all"):
         raise ValueError(kv_mode)
     ck_all, cv_all, _ = caches
     dev = ck_all.device
     tokens = to_device(tokens, dev)
     positions = to_device(positions, dev)
+    sharded = _sharded(ctx)
+    if not sharded:
+        ctx, kv_mode = None, "local"
+    elif kv_mode == "local":
+        raise ValueError("under a mesh the cache is sharded: kv_mode "
+                         "'head', 'seq' or 'seq_all'")
+    seq_axes, split, sc = (), False, ck_all.shape[2]
+    if kv_mode == "head":
+        _check_tp(cfg, ctx)
+    elif kv_mode in ("seq", "seq_all"):
+        for what, n in (("vocab", cfg.vocab), ("q_dim", cfg.q_dim),
+                        ("kv_dim", cfg.kv_dim), ("d_ff", cfg.d_ff or 1)):
+            sharding.check_divisible(n, ctx.tp, what)
+        seq_axes = ((*ctx.batch_axes, ctx.model_axis)
+                    if kv_mode == "seq_all" else (ctx.model_axis,))
+        sc *= ctx.axis_prod(seq_axes)
+    if sharded and kv_mode != "seq_all":
+        tokens, copies = ctx.batch_rows(tokens)
+        positions, _ = ctx.batch_rows(positions)
+        split = copies == 1 and ctx.axis_prod(ctx.batch_axes) > 1
     b = tokens.shape[0]
-    sc = ck_all.shape[2]
-    layers = compute_cast(params["layers"], cfg.compute_dtype)
+    embed, final_norm, layers = _serve_weights(params, cfg, ctx)
     write_pos = positions % sc                  # ring buffer under SWA
     new_len = torch.clamp(positions + 1, max=sc).to(torch.int32)
     with f32_matmul():
-        x = embed_lookup(params["embed"], tokens, cfg)
-        for li, lp in enumerate(_unstack(layers)):
-            q, k, v = _attn_qkv(x, lp, cfg, positions[:, None])
-            _write_cache_local(ck_all[li], cv_all[li], k, v, write_pos)
-            att = decode_attention_local(q[:, 0], ck_all[li], cv_all[li],
-                                         new_len, backend=backend)
-            att = att.to(x.dtype).reshape(b, 1, cfg.q_dim)
-            x = x + att @ lp["wo"].to(att.dtype)
-            x = x + _ffn(x, lp, cfg)[0]
-        x = apply_norm(cfg.norm, x, params["final_norm"])
-        logits = lm_head_logits(params, cfg, x)[:, 0]
-    return logits, (ck_all, cv_all, new_len)
+        x = embed_lookup(embed, tokens, cfg, ctx)
+        for li, lp in enumerate(layers):
+            lp = lp() if callable(lp) else lp
+            if seq_axes:
+                q, k, v = _qkv_whole(x, lp, cfg, positions[:, None], ctx)
+                att = _decode_seqsharded(q[:, 0], k, v, ck_all[li],
+                                         cv_all[li], write_pos, new_len,
+                                         ctx, seq_axes)
+                # wo is row-parallel: this rank's q_dim slice of the heads
+                w = cfg.q_dim // ctx.tp
+                att = att.to(x.dtype).reshape(b, 1, cfg.q_dim).narrow(
+                    2, ctx.mesh.get_local_rank(ctx.model_axis) * w, w)
+            else:
+                q, k, v = _attn_qkv(x, lp, cfg, positions[:, None], ctx)
+                _write_cache_local(ck_all[li], cv_all[li], k, v, write_pos)
+                att = decode_attention_local(q[:, 0], ck_all[li], cv_all[li],
+                                             new_len, backend=backend)
+                att = att.to(x.dtype).reshape(b, 1, cfg.q_dim // _tp(ctx))
+            x = x + _from_model(att @ lp["wo"].to(att.dtype), ctx)
+            x = x + _ffn(x, lp, cfg, ctx)[0]
+        x = apply_norm(cfg.norm, x, final_norm)
+        logits = lm_head_logits(params, cfg, x, ctx)[:, 0]
+    return _whole_logits(logits, ctx, split), (ck_all, cv_all, new_len)

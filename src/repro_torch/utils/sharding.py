@@ -22,14 +22,15 @@ this rank's block without communication; `full_tensor` gathers it back
 a dim that its axes do not divide raises (`ShardCtx.sanitize` drops
 such a sharding first where the reference does).
 
-Collectives (`all_reduce`, `all_gather`, `reduce_scatter`, `broadcast`,
-`reduce`) run on a mesh axis's process group and are counted in
+Collectives (`all_reduce` with a sum or a max, `all_gather`,
+`reduce_scatter`, `all_to_all`, `broadcast`, `reduce`) run on a mesh axis's process group and are counted in
 `comm_log` by kind: calls and payload bytes.  They take the tensors
 where they lie, on the card too: a backend that refuses a device raises,
 and nothing moves to the host instead.  The autograd faces
 (`reduce_from`, `copy_to`, `gather_view`, `compute_view`) are Megatron's
 conjugate pairs: an all-reduce forward is an identity backward and the
-reverse, an all-gather forward is a reduce-scatter backward.
+reverse, an all-gather forward is a reduce-scatter backward; the
+tiled all-to-all is its own inverse exchange backward.
 """
 from __future__ import annotations
 
@@ -327,7 +328,7 @@ def all_reduce(x: torch.Tensor, mesh, axes, op: str = "sum") -> torch.Tensor:
     out = x.contiguous().clone()
     for a in _axes(axes):
         if axis_size(mesh, a) > 1:
-            _count("all_reduce", out)
+            _count("all_reduce" if op == "sum" else f"all_reduce_{op}", out)
             dist.all_reduce(out, op=_OPS[op], group=_group(mesh, a))
     return out
 
@@ -358,6 +359,22 @@ def reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
                       dtype=x.dtype, device=x.device)
     _count("reduce_scatter", src)
     _reduce_scatter_1(out, src, group=_group(mesh, axis))
+    return out.movedim(0, dim)
+
+
+def _all_to_all(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """Tiled all-to-all along `dim` over `axis`: `x` cut into one block a
+    rank, block j sent to the rank at coordinate j, the received blocks
+    concatenated in coordinate order (`jax.lax.all_to_all(x, axis, dim,
+    dim, tiled=True)`)."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return x
+    check_divisible(x.shape[dim], n, f"dim {dim} of {tuple(x.shape)}")
+    src = x.movedim(dim, 0).contiguous()
+    out = torch.empty_like(src)
+    _count("all_to_all", src)
+    dist.all_to_all_single(out, src, group=_group(mesh, axis))
     return out.movedim(0, dim)
 
 
@@ -428,6 +445,18 @@ class _Gather(torch.autograd.Function):
         return reduce_scatter(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _all_to_all(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the inverse exchange: each block goes back to the rank it came from
+        return _all_to_all(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
 class _LayerFrom(torch.autograd.Function):
     """Layer `li` of a stack whose dim 0 is sharded over `axis`: broadcast
     from its owner forward, its gradient summed onto the owner backward.
@@ -459,6 +488,14 @@ def copy_to(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """Identity forward, gradient summed over `axes`' ranks backward
     (Megatron's f)."""
     return _CopyTo.apply(x, mesh, _axes(axes))
+
+
+def all_to_all(x: torch.Tensor, mesh, axis: str,
+               split_dim: int = 0) -> torch.Tensor:
+    """The tiled all-to-all of `x` along `split_dim` over `axis` (block j
+    to the rank at coordinate j, the blocks received concatenated in
+    coordinate order); backward, the inverse exchange."""
+    return _AllToAll.apply(x, mesh, axis, split_dim)
 
 
 def gather_view(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:

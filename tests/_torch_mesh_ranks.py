@@ -5,20 +5,27 @@ the JAX package in its own process.  This module imports no jax (the ranks
 import it), and is not a test file."""
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.launch.mesh import device_mesh
+from repro_torch.models import moe
 from repro_torch.models.recsys import din
 from repro_torch.models.recsys.embedding import sharded_lookup
-from repro_torch.models.transformer import (LMConfig, ShardCtx, lm_loss,
-                                            lm_param_specs, params_from_jax)
+from repro_torch.models.transformer import (LMConfig, ShardCtx, cache_specs,
+                                            decode_step, lm_loss,
+                                            lm_param_specs, params_from_jax,
+                                            serve_prefill)
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.optimizer import AdamWConfig, opt_state_specs
 from repro_torch.train.trainer import (init_train_state, loss_and_grads,
                                        make_manual_dp_step, make_train_step)
 from repro_torch.utils import sharding
-from repro_torch.utils.sharding import (P, all_gather, full_tensor, local, ns,
+from repro_torch.utils.sharding import (P, all_gather, full_tensor, local,
+                                        local_block, ns, placements,
                                         shard_tree)
 from repro_torch.utils.tree import flatten_with_path
 
@@ -36,9 +43,35 @@ def _layout(tree) -> dict:
             for k, v in flatten_with_path(tree)}
 
 
+def lm_config(cfg: dict) -> LMConfig:
+    """An LMConfig from a case's dict (its "moe" entry a dict too)."""
+    if cfg.get("moe") is not None:
+        cfg = dict(cfg, moe=moe.MoEConfig(**cfg["moe"]))
+    return LMConfig(**cfg)
+
+
+def _every_rank(x: torch.Tensor, mesh) -> np.ndarray:
+    """(world, ...) of each rank's `x` (the same shape on every rank), in
+    rank order (every rank calls)."""
+    x = x.detach()[None]
+    for axis in reversed(sharding.axis_names(mesh)):
+        x = all_gather(x, mesh, axis, 0)
+    return x.numpy().copy()
+
+
+def _from_blocks(block: torch.Tensor, mesh, spec, shape) -> np.ndarray:
+    """The full array whose `spec` blocks the ranks hold (every rank
+    calls)."""
+    stride = torch.empty(shape).stride()
+    dt = DTensor.from_local(block, mesh, placements(mesh, spec),
+                            run_check=False, shape=torch.Size(shape),
+                            stride=stride)
+    return full_tensor(dt).numpy().copy()
+
+
 def _lm_state(mesh, case):
     """(cfg, ctx, sharded train state) of an LM case."""
-    cfg = LMConfig(**case["cfg"])
+    cfg = lm_config(case["cfg"])
     ctx = ShardCtx(mesh=mesh)
     params = params_from_jax(case["params"], cfg, device="cpu")
     specs = lm_param_specs(cfg, ctx, fsdp_axis=case.get("fsdp"))
@@ -176,14 +209,123 @@ def dp_case(mesh, case) -> dict:
     return {"losses": losses, "psum": psums}
 
 
+def _serve_state(mesh, case):
+    cfg = lm_config(case["cfg"])
+    ctx = ShardCtx(mesh=mesh)
+    params = params_from_jax(case["params"], cfg, device="cpu")
+    return cfg, ctx, shard_tree(params, lm_param_specs(cfg, ctx), mesh)
+
+
+def decode_case(mesh, case) -> dict:
+    """Sharded decode steps: for each (mode, mesh shape, cache, positions)
+    of case["runs"], the full cache cut into this rank's block by
+    `cache_specs`, one `decode_step(ctx=)`; each rank's logits, the new
+    cache and lengths reassembled whole.  Then the sharded prefill on this
+    mesh: its logits on each rank and its "head" cache whole."""
+    out = {"runs": []}
+    meshes = {tuple(mesh.shape): mesh}
+    for run in case["runs"]:
+        shape = tuple(run["mesh"])
+        if shape not in meshes:
+            meshes[shape] = device_mesh(shape, ("data", "model"), "cpu")
+        m = meshes[shape]
+        cfg, ctx, params = _serve_state(m, case)
+        ck, cv, ln = (torch.as_tensor(case["caches"][run["cache"]][i])
+                      for i in range(3))
+        specs = cache_specs(cfg, ctx, run["mode"])
+        blocks = [local_block(m, sp, x).clone()
+                  for sp, x in zip(specs, (ck, cv, ln))]
+        with torch.no_grad():
+            logits, (nk, nv, nl) = decode_step(
+                params, cfg, torch.as_tensor(case["tokens"][:, :1]),
+                torch.as_tensor(run["positions"]), tuple(blocks),
+                kv_mode=run["mode"], ctx=ctx)
+        out["runs"].append({
+            "logits": _every_rank(logits, mesh),
+            "ck": _from_blocks(nk, m, specs[0], ck.shape),
+            "cv": _from_blocks(nv, m, specs[1], cv.shape),
+            "lengths": _from_blocks(nl, m, specs[2], ln.shape),
+            "block": tuple(nk.shape)})
+    cfg, ctx, params = _serve_state(mesh, case)
+    with torch.no_grad():
+        logits, (ck, cv), ln = serve_prefill(
+            params, cfg, torch.as_tensor(case["tokens"]), ctx=ctx)
+    spec = cache_specs(cfg, ctx, "head")
+    b, s = case["tokens"].shape
+    full = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.d_head)
+    out["prefill"] = {"logits": _every_rank(logits, mesh),
+                      "ck": _from_blocks(ck, mesh, spec[0], full),
+                      "cv": _from_blocks(cv, mesh, spec[1], full),
+                      "lengths": _from_blocks(ln, mesh, spec[2], (b,))}
+    return out
+
+
+# an MoE layer's leaves over "model": experts split, the shared expert
+# column- then row-parallel, the router whole
+MOE_SPECS = {"router": None, "we_gate": P("model"), "we_in": P("model"),
+             "we_out": P("model"), "ws_gate": P(None, "model"),
+             "ws_in": P(None, "model"), "ws_out": P("model")}
+
+
+def moe_drop_case(mesh, case) -> dict:
+    """`moe_ffn(mesh=...)` on this rank's rows at the case's capacities:
+    each rank's output and its dropped slots, for each `groups`."""
+    cfg0 = moe.MoEConfig(**case["moe"])
+    x = torch.as_tensor(case["x"])
+    ctx = ShardCtx(mesh=mesh)
+    rows, _ = ctx.batch_rows(x)
+    p = {k: local_block(mesh, MOE_SPECS[k], torch.as_tensor(v))
+         for k, v in case["params"].items()}
+    out = {}
+    for groups in case["groups"]:
+        cfg = dataclasses.replace(cfg0, groups=groups)
+        moe.drop_log.reset()
+        moe.drop_log.on = True
+        with torch.no_grad():
+            y, aux = moe.moe_ffn(rows, p, cfg, mesh=mesh,
+                                 batch_axes=("data",), model_axis="model")
+        moe.drop_log.on = False
+        d = moe.drop_log.snapshot()
+        out[groups] = {"out": _every_rank(y, mesh),
+                       "aux": _every_rank(aux, mesh),
+                       "drops": _every_rank(torch.tensor(
+                           [d["slots"], d["send"], d["expert"]]), mesh)}
+    return out
+
+
+def moe_grad_case(mesh, case) -> dict:
+    """Gradients through `moe_ffn(mesh=...)` where "model" does not divide
+    a rank's tokens (every model rank runs them all): each rank's loss
+    sum(out * g) + aux on its rows; each leaf's gradient summed over
+    "data" (the data-parallel sum) and reassembled whole."""
+    cfg = moe.MoEConfig(**case["moe"])
+    ctx = ShardCtx(mesh=mesh)
+    rows, _ = ctx.batch_rows(torch.as_tensor(case["x"]))
+    g, _ = ctx.batch_rows(torch.as_tensor(case["g"]))
+    rows = rows.clone().requires_grad_()
+    p = {k: local_block(mesh, MOE_SPECS[k], torch.as_tensor(v)).clone()
+         .requires_grad_() for k, v in case["params"].items()}
+    out, aux = moe.moe_ffn(rows, p, cfg, mesh=mesh, batch_axes=("data",),
+                           model_axis="model")
+    ((out * g).sum() + aux).backward()
+    grads = {k: _from_blocks(sharding.all_reduce(v.grad, mesh, "data"), mesh,
+                             MOE_SPECS[k], case["params"][k].shape)
+             for k, v in p.items()}
+    grads["x"] = _from_blocks(rows.grad, mesh, P("data"), case["x"].shape)
+    return {"grads": grads, "x_by_rank": _every_rank(rows.grad, mesh)}
+
+
 def mesh4(mesh, cases: dict) -> dict:
     """Every case of the 4-rank run, on this (2, 2) mesh."""
     out = {"coordinate": tuple(mesh.get_coordinate())}
-    for name in ("tp", "fsdp", "zero1"):
+    for name in ("tp", "fsdp", "zero1", "moe"):
         out[name] = lm_case(mesh, cases[name])
     out["lookup"] = lookup_case(mesh, cases["lookup"])
     out["din"] = din_case(mesh, cases["din"])
     out["dp"] = dp_case(mesh, cases["dp"])
+    out["decode"] = decode_case(mesh, cases["decode"])
+    out["moe_drop"] = moe_drop_case(mesh, cases["moe_drop"])
+    out["moe_grad"] = moe_grad_case(mesh, cases["moe_grad"])
     out["comm"] = sharding.comm_log.snapshot()
     return out
 

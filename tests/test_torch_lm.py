@@ -355,20 +355,31 @@ def test_olmo_configs_match_reference():
     assert LM_SHAPES["decode_32k"].seq_len == 32768
 
 
-def test_unported_modes_raise():
+def test_modes_without_a_mesh_are_the_local_step():
+    """Without a mesh every kv_mode is the single-device step, as in the
+    reference ("head" on one card is it with tp = 1; "seq" and "seq_all"
+    shard nothing there); an unknown mode raises.  The sharded modes are
+    tests/test_torch_sharded.py's."""
     jcfg = _jcfg()
     cfg = _port_cfg(jcfg)
     params = init_lm_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
     prompt = torch.zeros((1, 4), dtype=torch.int32)
     _, caches = _prefill_into_cache(cfg, params, prompt, 8)
-    for mode in ("seq", "seq_all"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP .* 7\.3"):
-            decode_step(params, cfg, prompt[:, :1], torch.tensor([4]), caches,
-                        kv_mode=mode)
-    out = decode_step(params, cfg, prompt[:, :1], torch.tensor([4]), caches,
-                      kv_mode="head")
+
+    def step(mode):
+        c = tuple(t.clone() for t in caches)
+        return decode_step(params, cfg, prompt[:, :1], torch.tensor([4]), c,
+                           kv_mode=mode)
+
+    out = step("head")
     assert out[0].shape == (1, cfg.vocab)
+    for mode in ("local", "seq", "seq_all"):
+        got = step(mode)
+        assert torch.equal(got[0], out[0])
+        assert all(torch.equal(a, b) for a, b in zip(got[1], out[1]))
+    with pytest.raises(ValueError):
+        step("rows")
     # MoE layers are ported: a reduced MoE config initialises and decodes
     moe_cfg = qwen2_moe_a2_7b.model_config(reduced=True)
     moe_params = init_lm_params(moe_cfg, torch.Generator().manual_seed(0),

@@ -111,10 +111,24 @@ def test_moe_ffn_matches_reference(top_k, n_shared, overflow):
     np.testing.assert_allclose(float(aux), float(jaux), rtol=0, atol=1e-6)
 
 
-def test_moe_ffn_on_a_mesh_raises():
-    _, cfg = _cfgs(n_experts=4, top_k=1, d_ff_expert=8, pad_multiple=4)
-    with pytest.raises(NotImplementedError, match="7.3"):
-        moe.moe_ffn(torch.zeros((1, 2, 4)), {}, cfg, mesh=object())
+def test_moe_ffn_without_a_mesh_is_the_single_device_layer():
+    """mesh=None (with or without axes named) is the layer as it was,
+    bitwise; the expert-parallel path is tests/test_torch_sharded.py's."""
+    _, cfg = _cfgs(n_experts=6, top_k=2, d_ff_expert=24, n_shared=1,
+                   d_ff_shared=32, pad_multiple=8)
+    x = torch.from_numpy(RNG.normal(size=(3, 16, 16)).astype(np.float32))
+    wg, wi, wo = _weights((8, 16, 24), (8, 16, 24), (8, 24, 16))
+    sg, si, so = _weights((16, 32), (16, 32), (32, 16))
+    params = {k: torch.from_numpy(v) for k, v in zip(
+        ("router", "we_gate", "we_in", "we_out", "ws_gate", "ws_in",
+         "ws_out"),
+        (RNG.normal(size=(16, 6)).astype(np.float32), wg, wi, wo, sg, si,
+         so))}
+    out, aux = moe.moe_ffn(x, params, cfg)
+    for kw in (dict(mesh=None), dict(mesh=None, batch_axes=("data",),
+                                     model_axis="model")):
+        o2, a2 = moe.moe_ffn(x, params, cfg, **kw)
+        assert torch.equal(o2, out) and torch.equal(a2, aux)
 
 
 def test_one_expert_moe_lm_equals_dense():

@@ -16,10 +16,25 @@ on gradients and steps, DIN's (1e-5 / 1e-6), the lookup at 1e-6, the DP
 loss at the reference's 0.05; the sharded sums add in another order
 than one device does.
 
+Mesh B, in the same spawn: sequence-sharded decode ("seq" and
+"seq_all" on the (2, 2) mesh, "seq" on a (1, 4) mesh of the same ranks,
+where 2 kv heads do not divide tp 4) and "head" decode, at the reference
+test's dims (tests/test_sharded.py:93) and rtol / atol 3e-4, on its
+prefilled cache (new length 17) and on a random one whose rows write at
+the first and last row of a shard and leave later shards empty; the
+sharded prefill at the LM bar; the expert-parallel MoE's loss (2e-5) and
+every gradient leaf at no-drop capacities (tests/test_sharded.py:71),
+and at the published capacities, on a batch that drops slots, each
+rank's output (1e-5 / 1e-6) and dropped slots against the reference's
+own sharded body `_moe_local`, run under `jax.vmap(axis_name="model")`
+in this process (its slots drop where one device's would not).
+
 Then process-free cases: the port's spec helpers give the reference's
 `PartitionSpec`s leaf by leaf (every LM config of the registry, reduced,
-with `fsdp_axis` and ZeRO-1; DIN), on mesh stand-ins that carry only
-axis names and sizes, and the mesh-less paths are bitwise what they were.
+with `fsdp_axis` and ZeRO-1; DIN; `cache_specs` in each mode), on mesh
+stand-ins that carry only axis names and sizes; `_decode_partial` and
+`shard_lengths` against the reference's, an empty shard included; and
+the mesh-less paths are bitwise what they were.
 """
 import dataclasses
 import functools
@@ -34,13 +49,17 @@ import torch
 import _torch_mesh_ranks as ranks
 from repro.configs import registry as jregistry
 from repro.data.synthetic import din_batch, lm_batch
+from repro.models import layers as jlayers
+from repro.models import moe as jmoe
 from repro.models import transformer as jtf
+from repro.models.attention import _decode_partial as j_decode_partial
+from repro.models.attention import shard_lengths as j_shard_lengths
 from repro.models.recsys import din as jdin
 from repro.train import optimizer as jopt
 from repro.train import trainer as jtrainer
 from repro_torch.configs import registry
 from repro_torch.launch.mesh import run_ranks
-from repro_torch.models import moe
+from repro_torch.models import attention, moe
 from repro_torch.models import transformer as tf
 from repro_torch.models.recsys import din
 from repro_torch.models.recsys.embedding import sharded_lookup
@@ -55,6 +74,27 @@ FSDP = dict(TP, name="f", remat="full")
 DP = dict(name="c", n_layers=2, d_model=32, n_heads=4, n_kv_heads=2,
           d_head=8, d_ff=64, vocab=64, remat="none", loss_chunks=2,
           dtype="float32")
+MOE = dict(name="m", n_layers=2, d_model=64, n_heads=8, n_kv_heads=4,
+           d_head=16, d_ff=0, vocab=256, remat="none", loss_chunks=2,
+           dtype="float32",
+           moe=dict(n_experts=8, top_k=2, d_ff_expert=64, n_shared=1,
+                    d_ff_shared=64, pad_multiple=4, capacity_factor=8.0,
+                    expert_capacity_factor=8.0, groups=2))
+DEC = dict(name="d", n_layers=2, d_model=64, n_heads=8, n_kv_heads=2,
+           d_head=16, d_ff=128, vocab=256, remat="none", dtype="float32")
+# (kv_mode, mesh shape, cache, positions): the reference test's prefilled
+# cache at position 16 (new length 17), then a random cache with each row
+# writing at a shard's first or last row, later shards left empty
+DECODE_RUNS = [
+    ("seq", (2, 2), "prefill", (16, 16, 16, 16)),
+    ("seq_all", (2, 2), "prefill", (16, 16, 16, 16)),
+    ("seq", (1, 4), "prefill", (16, 16, 16, 16)),
+    ("head", (2, 2), "prefill", (16, 16, 16, 16)),
+    ("seq_all", (2, 2), "random", (8, 23, 31, 0)),
+    ("seq", (2, 2), "random", (16, 15, 0, 31)),
+    ("seq", (1, 4), "random", (8, 23, 31, 0)),
+    ("head", (2, 2), "random", (16, 15, 0, 31)),
+]
 OPT = dict(lr=1e-2, warmup_steps=5, total_steps=100)
 STEPS = 3
 CTX0 = jtf.ShardCtx(mesh=None)
@@ -69,24 +109,92 @@ def _np(tree):
     return None if tree is None else np.asarray(tree)
 
 
+def _freeze(cfg: dict) -> tuple:
+    return tuple((k, tuple(v.items()) if isinstance(v, dict) else v)
+                 for k, v in cfg.items())
+
+
 @functools.lru_cache(maxsize=None)
 def _twin_params(cfg_items, seed):
     """Twin parameters: the port's init (the reference's eager init takes
     seconds), as numpy."""
-    cfg = tf.LMConfig(**dict(cfg_items))
+    cfg = ranks.lm_config({k: dict(v) if k == "moe" else v
+                           for k, v in cfg_items})
     return _np(tf.init_lm_params(cfg, torch.Generator().manual_seed(seed),
                                  device="cpu"))
 
 
-def _lm_input(cfg: dict, fsdp=None, zero1=False, seed=0):
+def _lm_input(cfg: dict, fsdp=None, zero1=False, seed=0, steps=STEPS):
     toks = np.random.default_rng(0).integers(0, 256, (4, 16)).astype(np.int32)
     first = {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
     rest = [dict(zip(("tokens", "labels"), lm_batch(s, 4, 16, cfg["vocab"],
                                                    seed=0)))
             for s in range(1, STEPS + 1)]
-    return {"cfg": cfg, "params": _twin_params(tuple(cfg.items()), seed),
-            "fsdp": fsdp, "zero1": zero1, "opt": OPT, "steps": STEPS,
+    return {"cfg": cfg, "params": _twin_params(_freeze(cfg), seed),
+            "fsdp": fsdp, "zero1": zero1, "opt": OPT, "steps": steps,
             "batches": [first] + rest}
+
+
+def _decode_input():
+    """The reference decode test's model and prompt, its prefill placed in
+    a 32-slot cache, and a random 32-slot cache."""
+    params = _twin_params(_freeze(DEC), 2)
+    toks = np.random.default_rng(0).integers(0, 256, (4, 16)).astype(np.int32)
+    jcfg = _jcfg(DEC)
+    lg, (ck, cv), lens = jax.jit(lambda p, t: jtf.serve_prefill(
+        p, jcfg, t, CTX0))(params, toks)
+    shape = (DEC["n_layers"], 4, 32, DEC["n_kv_heads"], DEC["d_head"])
+    pre = [np.zeros(shape, np.float32) for _ in range(2)]
+    pre[0][:, :, :16], pre[1][:, :, :16] = np.asarray(ck), np.asarray(cv)
+    rng = np.random.default_rng(5)
+    rand = [rng.normal(size=shape).astype(np.float32) for _ in range(2)]
+    return {"cfg": DEC, "params": params, "tokens": toks,
+            "caches": {"prefill": (*pre, np.asarray(lens)),
+                       "random": (*rand, np.zeros(4, np.int32))},
+            "runs": [dict(mode=m, mesh=sh, cache=c, positions=np.asarray(
+                p, np.int32)) for m, sh, c, p in DECODE_RUNS],
+            "jprefill": (np.asarray(lg), np.asarray(ck), np.asarray(cv),
+                         np.asarray(lens))}
+
+
+def _moe_grad_input():
+    """Two rows of 7 tokens, one a data rank: 7 tokens do not split over 2
+    model ranks, so each runs them all; no-drop capacities (8.0)."""
+    case = _moe_drop_input()
+    rng = np.random.default_rng(13)
+    x = rng.normal(size=(2, 7, 16)).astype(np.float32)
+    return {"moe": dict(case["moe"], capacity_factor=8.0,
+                        expert_capacity_factor=8.0),
+            "params": case["params"], "x": x,
+            "g": rng.normal(size=x.shape).astype(np.float32)}
+
+
+def _moe_drop_input():
+    """A batch that overflows at the published capacities (1.25 / 1.5):
+    experts 0 and 1, both on model rank 0, are most tokens' choices.  The
+    widths are tests/test_torch_moe.py's (d 16, experts' 24), whose
+    outputs its MoE bar (1e-5 / 1e-6) holds, and the skew is put in the
+    router rather than in the activations: at d 64, or with the first
+    feature 2 above its draw, the single-device layer itself differs from
+    the reference's by up to 4.3e-6 on outputs of 3.8 to 8.3 (f32
+    products in another order)."""
+    mk = dict(n_experts=8, top_k=2, d_ff_expert=24, n_shared=1,
+              d_ff_shared=32, pad_multiple=4)
+    rng = np.random.default_rng(11)
+    d, f = 16, 24
+    x = rng.normal(size=(4, 16, d)).astype(np.float32)
+    router = rng.normal(size=(d, 8)).astype(np.float32)
+    x[..., 0] = np.abs(x[..., 0]) + 0.5
+    router[0, 0], router[0, 1] = 6.0, 5.5
+
+    def w(*shape):
+        return (rng.normal(size=shape) / np.sqrt(shape[-2])).astype(
+            np.float32)
+
+    params = {"router": router, "we_gate": w(8, d, f), "we_in": w(8, d, f),
+              "we_out": w(8, f, d), "ws_gate": w(d, 32), "ws_in": w(d, 32),
+              "ws_out": w(32, d)}
+    return {"moe": mk, "x": x, "params": params, "groups": (1, 2)}
 
 
 def _din_input():
@@ -121,7 +229,9 @@ def cases(tmp_path_factory):
             "lookup": {"table": rng.normal(size=(64, 6)).astype(np.float32),
                        "ids": np.random.default_rng(4).integers(
                            0, 64, (4, 5)).astype(np.int32)},
-            "din": _din_input(), "dp": _dp_input()}
+            "din": _din_input(), "dp": _dp_input(),
+            "moe": _lm_input(MOE, seed=1, steps=0), "decode": _decode_input(),
+            "moe_drop": _moe_drop_input(), "moe_grad": _moe_grad_input()}
 
 
 @pytest.fixture(scope="module")
@@ -143,6 +253,8 @@ def run2(cases, run4, tmp_path_factory):
 
 
 def _jcfg(cfg: dict):
+    if cfg.get("moe") is not None:
+        cfg = dict(cfg, moe=jmoe.MoEConfig(**cfg["moe"]))
     return jtf.LMConfig(**cfg)
 
 
@@ -339,6 +451,204 @@ def test_rank_failure_raises(tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# Mesh B: sharded decode and prefill, expert-parallel MoE
+# ---------------------------------------------------------------------------
+_JDECODE: dict = {}
+
+
+def _jdecode(case, run):
+    """The reference's single-device decode step ("local") on the run's
+    full cache: (logits, ck, cv, lengths) as numpy."""
+    if "fn" not in _JDECODE:
+        jcfg = _jcfg(case["cfg"])
+        _JDECODE["fn"] = jax.jit(lambda p, t, q, c: jtf.decode_step(
+            p, jcfg, t, q, c, CTX0, "local"))
+    lg, (ck, cv, ln) = _JDECODE["fn"](case["params"], case["tokens"][:, :1],
+                                      run["positions"],
+                                      case["caches"][run["cache"]])
+    return tuple(np.asarray(a) for a in (lg, ck, cv, ln))
+
+
+@pytest.mark.parametrize("i", range(len(DECODE_RUNS)), ids=[
+    f"{m}-{sh[0]}x{sh[1]}-{c}" for m, sh, c, _ in DECODE_RUNS])
+def test_sharded_decode_matches_reference(cases, run4, i):
+    """tests/test_sharded.py:93: every rank's logits within rtol / atol
+    3e-4 of the reference's single-device step; the cache written at the
+    new row only (by the rank whose slice holds it), the lengths new."""
+    case = cases["decode"]
+    run, got = case["runs"][i], run4["decode"]["runs"][i]
+    lg, ck, cv, ln = _jdecode(case, run)
+    assert got["logits"].shape == (4,) + lg.shape
+    for r in range(4):
+        np.testing.assert_allclose(got["logits"][r], lg, rtol=3e-4,
+                                   atol=3e-4, err_msg=f"rank {r}")
+    np.testing.assert_allclose(got["ck"], ck, rtol=3e-4, atol=3e-4)
+    np.testing.assert_allclose(got["cv"], cv, rtol=3e-4, atol=3e-4)
+    np.testing.assert_array_equal(got["lengths"], ln)
+    if run["cache"] == "prefill":
+        assert (got["lengths"] == 17).all()
+
+
+def test_sharded_decode_blocks_follow_cache_specs(run4):
+    """Each rank's cache block: "seq" halves the rows and the sequence on
+    (2, 2), quarters the sequence on (1, 4) with both kv heads whole;
+    "seq_all" quarters the sequence with every row; "head" halves the
+    rows and the kv heads."""
+    blocks = {(m, sh): r["block"] for (m, sh, _, _), r in
+              zip(DECODE_RUNS, run4["decode"]["runs"])}
+    assert blocks[("seq", (2, 2))] == (2, 2, 16, 2, 16)
+    assert blocks[("seq", (1, 4))] == (2, 4, 8, 2, 16)
+    assert blocks[("seq_all", (2, 2))] == (2, 4, 8, 2, 16)
+    assert blocks[("head", (2, 2))] == (2, 2, 32, 1, 16)
+
+
+def test_sharded_prefill_matches_reference(cases, run4):
+    """`serve_prefill(ctx=)`: the last-token logits whole on every rank,
+    the "head" cache blocks reassembled, within the LM bar of the
+    reference's single-device prefill."""
+    lg, ck, cv, ln = cases["decode"]["jprefill"]
+    got = run4["decode"]["prefill"]
+    for r in range(4):
+        np.testing.assert_allclose(got["logits"][r], lg, rtol=1e-4,
+                                   atol=1e-5, err_msg=f"rank {r}")
+    np.testing.assert_allclose(got["ck"], ck, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got["cv"], cv, rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(got["lengths"], ln)
+
+
+def test_moe_sharded_loss_and_grads_match_reference(cases, run4):
+    """tests/test_sharded.py:71 (capacities 8.0, groups 2, no slot
+    drops): the expert-parallel loss within rtol 2e-5 of the reference's
+    unsharded loss, and every gradient leaf, the router's and the
+    experts' included, within the LM bar of its unsharded gradient."""
+    case = cases["moe"]
+    np.testing.assert_allclose(run4["moe"]["loss"],
+                               _jloss(case, case["batches"][0]), rtol=2e-5)
+    want, got = _jgrads(case), run4["moe"]["grads"]
+    assert set(got) == set(want)
+    assert "['layers']['we_gate']" in got
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
+
+
+def _ref_drops(eids: np.ndarray, mp: int, cfg) -> np.ndarray:
+    """(mp, 3) [slots, send drops, expert drops] of each model rank, as
+    the reference's `_moe_local` / `_moe_group_local` arithmetic makes
+    them: each rank its 1/mp slice of the tokens, in groups; a sender's
+    slots to a rank past `cap` (in expert-sorted order) drop, then a
+    local expert's received rows past `cap_e`."""
+    t_full, k = eids.shape
+    e_l = cfg.n_experts_padded // mp
+    sl = t_full // mp
+    g = max(gg for gg in range(1, min(cfg.groups, sl) + 1) if sl % gg == 0)
+    n = sl // g
+    out = np.zeros((mp, 3), np.int64)
+    for gi in range(g):
+        n_slot = n * k
+        cap = jmoe._round8(int(cfg.capacity_factor * n_slot / mp))
+        cap_e = jmoe._round8(int(cfg.expert_capacity_factor * mp * n_slot
+                                 / cfg.n_experts_padded))
+        recv = np.zeros((mp, e_l), np.int64)
+        for r in range(mp):
+            lo = r * sl + gi * n
+            s_e = np.sort(eids[lo:lo + n].reshape(-1), kind="stable")
+            out[r, 0] += n_slot
+            for dest in range(mp):
+                to = s_e[s_e // e_l == dest]
+                out[r, 1] += max(len(to) - cap, 0)
+                recv[dest] += np.bincount(to[:cap] % e_l, minlength=e_l)
+        out[:, 2] += np.maximum(recv - cap_e, 0).sum(1)
+    return out
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_moe_published_capacities_match_sharded_reference(cases, run4,
+                                                          groups):
+    """At capacities 1.25 / 1.5 on a batch that drops slots, each rank's
+    `moe_ffn(mesh=...)` output within 1e-5 / 1e-6 of the reference's
+    sharded body `_moe_local` (the expert stacks split over a vmapped
+    "model" axis; its router as `moe_ffn` runs it, its shared expert's
+    two column blocks' partials summed),
+    for each data rank's rows, and its dropped slots the reference's; the
+    aux loss the whole batch's on every rank."""
+    case = cases["moe_drop"]
+    got = run4["moe_drop"][groups]
+    jcfg = jmoe.MoEConfig(**case["moe"], groups=groups)
+    p = {k: jnp.asarray(v) for k, v in case["params"].items()}
+    mp, e_l = 2, jcfg.n_experts_padded // 2
+    body = jax.jit(jax.vmap(functools.partial(
+        jmoe._moe_local, cfg=jcfg, model_axis="model", activation="silu"),
+        in_axes=(None, None, None, 0, 0, 0), axis_name="model"))
+    stacks = [p[k].reshape((mp, e_l) + p[k].shape[1:])
+              for k in ("we_gate", "we_in", "we_out")]
+    x = case["x"]
+    drops = np.zeros((4, 3), np.int64)
+    for di in range(2):
+        xt = jnp.asarray(x[2 * di:2 * di + 2].reshape(-1, x.shape[-1]))
+        gates, eids, _ = jmoe.route(xt, p["router"], jcfg)
+        outs = body(xt, gates.astype(xt.dtype), eids, *stacks)
+        # the shared expert tensor-parallel as `lm_param_specs` lays it
+        # out (columns, then rows, over "model"): its partials summed
+        f = p["ws_in"].shape[1] // mp
+        shared = sum(jlayers.gated_mlp(
+            xt, p["ws_gate"][:, j * f:(j + 1) * f],
+            p["ws_in"][:, j * f:(j + 1) * f],
+            p["ws_out"][j * f:(j + 1) * f], "silu") for j in range(mp))
+        drops[2 * di:2 * di + 2] = _ref_drops(np.asarray(eids), mp, jcfg)
+        for mi in range(mp):
+            r = 2 * di + mi
+            want = np.asarray(outs[mi] + shared).reshape(2, 16, -1)
+            np.testing.assert_allclose(got["out"][r], want, rtol=1e-5,
+                                       atol=1e-6, err_msg=f"rank {r}")
+    # the aux loss is the whole batch's, as the reference routes it
+    aux = jmoe.route(jnp.asarray(x.reshape(-1, x.shape[-1])), p["router"],
+                     jcfg)[2]
+    np.testing.assert_allclose(got["aux"], np.full(4, float(aux)),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(got["drops"], drops)
+    if groups == 1:                 # the batch drops at both capacities
+        assert drops[:, 1].sum() > 0 and drops[:, 2].sum() > 0
+    assert drops[:, 1:].sum() > 0
+
+
+def test_moe_replicated_path_grads_match_reference(cases, run4):
+    """Where "model" does not divide a rank's tokens every model rank
+    runs them all, its output's gradient scaled by 1/mp: the input's and
+    every leaf's gradient (summed over "data") within the LM bar of the
+    reference's single-device layer at no-drop capacities, and the
+    input's gradient the same on both model ranks."""
+    case = cases["moe_grad"]
+    jcfg = jmoe.MoEConfig(**case["moe"])
+
+    def loss(x, p):
+        out, aux = jmoe.moe_ffn(x, p, jcfg, mesh=None, batch_axes=(),
+                                model_axis=None)
+        return jnp.sum(out * case["g"]) + aux
+
+    gx, gp = jax.grad(loss, argnums=(0, 1))(
+        jnp.asarray(case["x"]),
+        {k: jnp.asarray(v) for k, v in case["params"].items()})
+    got = run4["moe_grad"]
+    want = dict({k: np.asarray(v) for k, v in gp.items()}, x=np.asarray(gx))
+    assert set(got["grads"]) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got["grads"][k], want[k], rtol=1e-4,
+                                   atol=1e-5, err_msg=k)
+    xr = got["x_by_rank"]
+    np.testing.assert_array_equal(xr[0], xr[1])
+    np.testing.assert_array_equal(xr[2], xr[3])
+
+
+def test_mesh_b_collectives_are_counted(run4):
+    """The 4-rank run's all_to_alls (the MoE exchange) and max-reduces
+    (the log-sum-exp merge) are counted in `comm_log` by kind."""
+    calls = run4["comm"]["calls"]
+    assert calls.get("all_to_all", 0) > 0
+    assert calls.get("all_reduce_max", 0) > 0
+
+
+# ---------------------------------------------------------------------------
 # Process-free: specs against the reference's, mesh-less paths unchanged
 # ---------------------------------------------------------------------------
 LM_ARCHS = sorted(a for a, m in registry.ARCHS.items() if m.FAMILY == "lm")
@@ -505,3 +815,88 @@ def test_meshless_paths_are_unchanged():
                        din.loss_fn(model.param_tree(), dcfg, batch,
                                    mesh=None))
     assert jcfg.n_layers == cfg.n_layers
+    # serving: prefill and decode with ctx None or mesh-less are the calls
+    # without ctx; every kv_mode without a mesh is the single-device step
+    lg, (ck, cv), ln = tf.serve_prefill(params, cfg, toks)
+    for ctx in (None, tf.ShardCtx()):
+        lg2, (ck2, cv2), ln2 = tf.serve_prefill(params, cfg, toks, ctx=ctx)
+        assert torch.equal(lg2, lg) and torch.equal(ck2, ck)
+        assert torch.equal(cv2, cv) and torch.equal(ln2, ln)
+    pos = torch.full((4,), 15)
+
+    def step(mode, ctx):
+        c = (ck.clone(), cv.clone(), ln)
+        return tf.decode_step(params, cfg, toks[:, :1], pos, c, mode,
+                              ctx=ctx)
+
+    base_lg, base_c = step("local", None)
+    for mode in ("local", "head", "seq", "seq_all"):
+        for ctx in (None, tf.ShardCtx()):
+            got_lg, got_c = step(mode, ctx)
+            assert torch.equal(got_lg, base_lg), (mode, ctx)
+            assert all(torch.equal(a, b) for a, b in zip(got_c, base_c))
+    with pytest.raises(ValueError):
+        step("rows", None)
+    # the MoE FFN: mesh None, or a mesh without the model axis
+    mcfg = moe.MoEConfig(n_experts=8, top_k=2, d_ff_expert=16, n_shared=1,
+                         d_ff_shared=16, pad_multiple=4)
+    g = torch.Generator().manual_seed(3)
+    mp = {"router": torch.randn(32, 8, generator=g),
+          "we_gate": torch.randn(8, 32, 16, generator=g),
+          "we_in": torch.randn(8, 32, 16, generator=g),
+          "we_out": torch.randn(8, 16, 32, generator=g),
+          "ws_gate": torch.randn(32, 16, generator=g),
+          "ws_in": torch.randn(32, 16, generator=g),
+          "ws_out": torch.randn(16, 32, generator=g)}
+    x = torch.randn(2, 8, 32, generator=g)
+    out, aux = moe.moe_ffn(x, mp, mcfg)
+    data_only = types.SimpleNamespace(mesh_dim_names=("data",), shape=(4,))
+    for kw in (dict(mesh=None), dict(mesh=None, model_axis="model"),
+               dict(mesh=data_only, model_axis="model")):
+        o2, a2 = moe.moe_ffn(x, mp, mcfg, **kw)
+        assert torch.equal(o2, out) and torch.equal(a2, aux)
+
+
+@pytest.mark.parametrize("mode", ["head", "seq", "seq_all"])
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_cache_specs_match_reference(arch, mode):
+    jcfg = jregistry.get_arch(arch).model_config(reduced=True)
+    for shape in ((2, 2), (4, 2)):
+        pm, jm = _meshes(shape)
+        want = jtf.cache_specs(jcfg, jtf.ShardCtx(mesh=jm), mode)
+        got = tf.cache_specs(_port_cfg(jcfg), tf.ShardCtx(mesh=pm), mode)
+        assert [tuple(g) for g in got] == [tuple(w) for w in want]
+    assert tf.cache_specs(_port_cfg(jcfg), tf.ShardCtx(), mode) == (
+        None, None, None)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_decode_partial_matches_reference(dtype):
+    """The unnormalized partial and its stats on one shard, lengths 0
+    (an empty shard: m at the finite -1e30, l and acc 0), 1, ragged and
+    the whole slice; then `shard_lengths` over every shard."""
+    rng = np.random.default_rng(9)
+    b, h, hkv, s, dh = 4, 8, 2, 12, 16
+    q = rng.normal(size=(b, h, dh)).astype(np.float32)
+    k = rng.normal(size=(b, s, hkv, dh)).astype(np.float32)
+    v = rng.normal(size=(b, s, hkv, dh)).astype(np.float32)
+    lens = np.array([0, 1, 7, s], np.int32)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    if dtype == "bfloat16":
+        tq, tk, tv = (a.to(torch.bfloat16) for a in (tq, tk, tv))
+        jq, jk, jv = (a.astype(jnp.bfloat16) for a in (jq, jk, jv))
+    got = attention._decode_partial(tq, tk, tv, torch.from_numpy(lens),
+                                    dh ** -0.5)
+    want = j_decode_partial(jq, jk, jv, jnp.asarray(lens), dh ** -0.5)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-6)
+    assert (got[1][0] == attention.NEG_INF).all()
+    assert not got[2][0].any() and not got[0][0].any()
+    total = torch.tensor([0, 5, 8, 17, 31, 32])
+    for idx in range(4):
+        np.testing.assert_array_equal(
+            attention.shard_lengths(total, idx, 8).numpy(),
+            np.asarray(j_shard_lengths(jnp.asarray(total.numpy()), idx, 8)))
