@@ -224,7 +224,8 @@ check raises and the script exits nonzero:
    `lm_param_specs(..., fsdp_axis="data")` (FSDP over data x tensor
    parallelism over model): step 0 in f32, whose loss must be within
    rtol 1e-4 and gradient norm within rtol 1e-3 of the single card's,
-   then 4 bf16 steps through `make_train_step` (lr 1e-4, losses finite),
+   then MESH_STEPS (3) bf16 steps through `make_train_step` (lr 1e-4,
+   losses finite),
    each logged with its ms over gloo (no figure of NCCL) and its
    collectives by kind, count and bytes; peak GiB by rank.  The model
    (step and f32 parameters) is saved from the mesh
@@ -269,10 +270,23 @@ check raises and the script exits nonzero:
    all_to_all bytes, and one "head" decode step of the trained model
    through the expert-parallel FFN on a 64-slot cache drawn N(0, 1).  Each part logs its
    steps' ms over gloo (no figure of NCCL), collectives by kind, count
-   and bytes, and peak GiB by rank.  The shortlist and "head" decode are
+   and bytes, and peak GiB by rank.  Then mesh C, in the same spawn: (4)
+   `ring_gather` and `ring_scatter_add` over the 4 ranks at ogb_products'
+   node count (RING_ROWS x RING_WIDTH f32, RING_IDS global ids, RING_PAD
+   of them -1), forward and VJP: the gather bitwise one card's
+   `index_select`, the scatter and both VJPs within rtol / atol 1e-5 of
+   one card's `index_add_` / `index_select` on the whole arrays, each
+   rank's block; ms a call, collective-permutes and bytes, peak GiB by
+   rank; (5) one train step each of NequIP and DimeNet at their
+   published widths, 1 layer / 1 block (`reduced`), on a synthetic graph
+   of GNN_MESH_NODES x GNN_MESH_EDGES (`reduced`), through the GNN
+   cells' rank program with the ring hooks (`launch.cells`): loss within
+   rtol 1e-4 and gradient norm within rtol 1e-3 of one card's step here,
+   collective-permutes counted.  The shortlist and "head" decode are
    the mesh path's kernels: each rank's `l2_topk` and `flash_decode`
    counters must be nonzero (the single-card comparisons' launches not
-   counted), every other counter, in each rank and here, 0.
+   counted), every other counter, in each rank and here, 0; mesh C
+   launches none.
 
 The last lines are the script's time, the card's nvidia-smi line, one JSON
 object with every kernel's numbers, and `{"ok": true, "device": {...}}`.
@@ -2635,7 +2649,9 @@ def gnn_training(dev, card, reset_counts, read_counts) -> dict:
 # ---------------------------------------------------------------------------
 # The sharded mesh (phase 14): ranks spawned on the card, joined over gloo
 # ---------------------------------------------------------------------------
-MESH_B, MESH_S, MESH_STEPS = 4, 512, 4
+# 3 bf16 steps, not 4: phase 14 took 166.3 s with mesh C on a slow host
+# (PERF §6), past its 150 s; and each ring op timed over 2 calls, not 3
+MESH_B, MESH_S, MESH_STEPS = 4, 512, 3
 # OLMo-1B's depth on the mesh: its 16 layers took phase 14 to 159.5 s on
 # the card, and 8 to 122.6 s on a slower host (PERF §6), past the phase's
 # 120 s, so the depth is cut; the width is the published one
@@ -2749,7 +2765,9 @@ def _mesh4_rank(mesh, ckpt_dir: str, t_spawn: float, refs_b: dict) -> dict:
     """Phase 14 on each of the 4 ranks of a (2, 2) mesh: OLMo-1B (step 0
     in f32, then MESH_STEPS bf16 steps, a save), DIN's lookup, loss and
     retrieval shortlist, the compressed DP step on a (4,) mesh, then mesh
-    B (`_mesh_b_rank`) against the parent's `refs_b`."""
+    B (`_mesh_b_rank`) against the parent's `refs_b`, then mesh C: the
+    ring ops (`_ring_rank`) and the GNN cells' ring steps
+    (`_gnn_mesh_rank`), checked against one card by the parent."""
     import torch
 
     from repro_torch.configs import din_cfg
@@ -2894,6 +2912,26 @@ def _mesh4_rank(mesh, ckpt_dir: str, t_spawn: float, refs_b: dict) -> dict:
 
     # 14.5-14.7: mesh B
     out["b"] = _mesh_b_rank(mesh, dev, refs_b)
+
+    # 14.8-14.9: mesh C, the ring ops and the GNN cells' ring step (no
+    # kernel lies on either: every count stays where it was)
+    before = counts()
+    t0 = time.perf_counter()
+    ring = _ring_rank(mesh, dev)
+    t_ring = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gnn = _gnn_mesh_rank(mesh, dev)
+    t_gnn = time.perf_counter() - t0
+    launched = sum(b - a for a, b in zip(before, counts()))
+    rows = _all_ranks(mesh, [ring["gather_bitwise"], *ring["close"],
+                             *ring["err"], ring["peak_gib"],
+                             ring["held_gib"], launched])
+    ring.update(gather_bitwise=[bool(r[0]) for r in rows],
+                close=[[bool(x) for x in r[1:4]] for r in rows],
+                err=[r[4:8] for r in rows], peak_gib=[r[8] for r in rows],
+                held_gib=[r[9] for r in rows])
+    out["c"] = {"ring": ring, "gnn": gnn, "ring_s": t_ring, "gnn_s": t_gnn,
+                "launched": [int(r[10]) for r in rows if r[10]]}
     out["launches"] = _all_ranks(mesh, [n - c for n, c in
                                         zip(counts(), compared)])
     return out
@@ -2999,7 +3037,8 @@ MESH_DECODE_STEPS = 8
 # B = QWEN_B x QWEN_S; the f32 step 0, then QWEN_STEPS bf16 steps: 1,
 # not 4, since a step is 10.0-12.8 s over gloo (FSDP's layer
 # broadcasts, 2.4 GB a step) and phase 14 took 168.1 s with 4 and 151.4
-# s with 2, past its 150 s (PERF §6)
+# s with 2, past its 150 s (PERF §6).  At 1 layer (drawn anew) the f32
+# step 0 dropped 12 slots at the no-drop capacities, so 2 it stays
 QWEN_LAYERS, QWEN_B, QWEN_S, QWEN_STEPS = 2, 4, 512, 1
 # f32 logits of the mesh against one card (the reference test's bar)
 SEQ_TOL = 3e-4
@@ -3400,6 +3439,340 @@ def _mesh_b_rank(mesh, dev, refs: dict) -> dict:
     return out
 
 
+# Mesh C (14.8-14.9): the ring primitives at ogb_products' node count,
+# 2,449,029 padded as the cells pad it (a multiple of 2 x 256), 8 f32
+# wide, with RING_IDS global ids of which RING_PAD are -1; then one step
+# of NequIP and one of DimeNet at their published widths and 1 layer / 1
+# block (`reduced` depth) on a synthetic graph of GNN_MESH_NODES x
+# GNN_MESH_EDGES (`reduced` from ogb_products: gloo moves about 0.5 GB/s
+# a rank, and the ring moves the whole table once a call).  At 65,536 x
+# 524,288 the two steps took 4.2 s of a phase 14 of 148.7 s run alone
+# (PERF §6), too near its 150 s on a slower host: half that graph
+RING_ROWS, RING_WIDTH, RING_IDS, RING_PAD = 2_449_408, 8, 4_194_304, 0.05
+RING_CALLS = 2
+GNN_MESH_NODES, GNN_MESH_EDGES, GNN_MESH_GRAPHS = 32_768, 262_144, 32
+RING_TOL = 1e-5
+
+
+def _ring_inputs(dev) -> dict:
+    """The ring check's whole arrays, drawn from SEED on dev (the same bits
+    on every rank): table, ids (RING_PAD of them -1), values, and the
+    cotangents of the gather's output and of the scatter's."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 8)
+    n, d, t = RING_ROWS, RING_WIDTH, RING_IDS
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    ids = torch.randint(0, n, (t,), generator=gen, device=dev)
+    pad = torch.rand((t,), generator=gen, device=dev) < RING_PAD
+    return {"table": normal(n, d), "ids": torch.where(pad, -1, ids),
+            "vals": normal(t, d), "c_gather": normal(t, d),
+            "c_scatter": normal(n, d)}
+
+
+def _ring_rank(mesh, dev) -> dict:
+    """14.8 on each rank: ring_gather and ring_scatter_add over the 4 ranks,
+    forward and VJP, against one card's index_select / index_add_ on the
+    whole arrays (every rank draws them), this rank's block of each."""
+    import torch
+
+    from repro_torch.models.gnn.ring_gather import ring_gather, ring_scatter_add
+    from repro_torch.utils import sharding
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    axes = sharding.axis_names(mesh)
+    me, p = sharding.coordinate(mesh, axes)
+    a = _ring_inputs(dev)
+    n, t = RING_ROWS // p, RING_IDS // p
+    ids = a["ids"]
+    mine = ids[me * t:(me + 1) * t]
+    rows = slice(me * n, (me + 1) * n)
+    ok = (ids >= 0)[:, None]
+    # one card's answers on the whole arrays, this rank's block of each
+    want_g = torch.where(ok[me * t:(me + 1) * t], a["table"].index_select(
+        0, mine.clamp(0, RING_ROWS - 1)), 0.0)
+    dump = torch.where(ids >= 0, ids, RING_ROWS)
+
+    def one_card_sum(v):
+        return torch.zeros(RING_ROWS + 1, RING_WIDTH, device=dev).index_add_(
+            0, dump, torch.where(ok, v, 0.0))[rows]
+
+    want_s = one_card_sum(a["vals"])
+    want_gt = one_card_sum(a["c_gather"])
+    want_gv = torch.where(ok[me * t:(me + 1) * t], a["c_scatter"].index_select(
+        0, mine.clamp(0, RING_ROWS - 1)), 0.0)
+    table = a["table"][rows].clone()
+    vals = a["vals"][me * t:(me + 1) * t].clone()
+    c_g = a["c_gather"][me * t:(me + 1) * t].clone()
+    c_s = a["c_scatter"][rows].clone()
+    del a, dump, ok
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30 if cuda else 0.0
+
+    def timed(fn):
+        ms = []
+        for _ in range(RING_CALLS):
+            sync()
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return out, ms
+
+    def err(got, want):
+        return float((got - want).abs().max()) if got.numel() else 0.0
+
+    def close(got, want):
+        return bool(torch.allclose(got, want, rtol=RING_TOL, atol=RING_TOL))
+
+    out = {}
+    sharding.comm_log.reset()
+    g, out["gather_ms"] = timed(lambda: ring_gather(table, mine, mesh, axes))
+    out["gather_comm"] = sharding.comm_log.snapshot()
+    sharding.comm_log.reset()
+    s, out["scatter_ms"] = timed(lambda: ring_scatter_add(
+        vals, mine, mesh, axes, n))
+    out["scatter_comm"] = sharding.comm_log.snapshot()
+
+    def vjp(fn, x, cot):
+        x = x.detach().requires_grad_(True)
+        (gx,) = torch.autograd.grad(fn(x), x, cot)
+        return gx
+
+    gt, out["gather_vjp_ms"] = timed(lambda: vjp(
+        lambda x: ring_gather(x, mine, mesh, axes), table, c_g))
+    gv, out["scatter_vjp_ms"] = timed(lambda: vjp(
+        lambda x: ring_scatter_add(x, mine, mesh, axes, n), vals, c_s))
+    out["gather_bitwise"] = bool(torch.equal(g, want_g))
+    out["close"] = [close(s, want_s), close(gt, want_gt), close(gv, want_gv)]
+    out["err"] = [err(g, want_g), err(s, want_s), err(gt, want_gt),
+                  err(gv, want_gv)]
+    out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2 ** 30
+                       if cuda else 0.0)
+    out["held_gib"] = held
+    return out
+
+
+def _mesh_triplets(src, dst, max_t: int):
+    """`models.gnn.dimenet.build_triplets`' pairs in its order (ji, then
+    kj in edge order), built with numpy array ops: every edge kj into
+    node j = src[ji], except the backtrack k == i; cut to max_t, padded
+    with -1."""
+    import numpy as np
+
+    e = len(src)
+    order = np.argsort(dst, kind="stable")
+    by_dst = dst[order]
+    lo = np.searchsorted(by_dst, src, "left")
+    cnt = np.where(src >= 0, np.searchsorted(by_dst, src, "right") - lo, 0)
+    ji = np.repeat(np.arange(e), cnt)
+    first = np.repeat(np.cumsum(cnt) - cnt, cnt)
+    kj = order[np.repeat(lo, cnt) + np.arange(len(ji)) - first]
+    keep = src[kj] != dst[ji]
+    ti, to = kj[keep][:max_t], ji[keep][:max_t]
+    pad = -np.ones(max_t - len(ti), np.int64)
+    return (np.concatenate([ti, pad]).astype(np.int32),
+            np.concatenate([to, pad]).astype(np.int32))
+
+
+def _mesh_graph() -> dict:
+    """14.9's synthetic graph (numpy, from SEED): GNN_MESH_NODES atoms of
+    8 species at N(0, 2^2) positions in GNN_MESH_GRAPHS graphs,
+    GNN_MESH_EDGES random edges (no self loops), N(0, 1) energies, and
+    DimeNet's triplets cut to 4 a edge (the cells' count)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 9)
+    n, e = GNN_MESH_NODES, GNN_MESH_EDGES
+    src = rng.integers(0, n, e).astype(np.int32)
+    dst = ((src + rng.integers(1, n, e)) % n).astype(np.int32)
+    g = {"species": rng.integers(0, 8, n).astype(np.int32),
+         "pos": (rng.normal(size=(n, 3)) * 2.0).astype(np.float32),
+         "edge_src": src, "edge_dst": dst,
+         "graph_ids": (np.arange(n) * GNN_MESH_GRAPHS // n).astype(np.int32),
+         "energy": rng.normal(size=GNN_MESH_GRAPHS).astype(np.float32)}
+    g["tri_in"], g["tri_out"] = _mesh_triplets(src, dst, 4 * e)
+    return g
+
+
+def _gnn_mesh_models():
+    """[(arch, module, config)]: NequIP (32 channels, l_max 2) and DimeNet
+    (d_hidden 128, 8 bilinear) at their published widths, 1 layer and 1
+    block."""
+    import dataclasses
+
+    from repro_torch.configs import dimenet_cfg, nequip_cfg
+    from repro_torch.models.gnn import dimenet, nequip
+
+    return [("nequip", nequip,
+             dataclasses.replace(nequip_cfg.model_config(), n_layers=1)),
+            ("dimenet", dimenet,
+             dataclasses.replace(dimenet_cfg.model_config(), n_blocks=1))]
+
+
+def _gnn_mesh_batch(arch, g, dev) -> dict:
+    keys = ["species", "pos", "edge_src", "edge_dst", "graph_ids", "energy"]
+    if arch == "dimenet":
+        keys += ["tri_in", "tri_out"]
+    return _to({k: g[k] for k in keys}, dev)
+
+
+def _gnn_mesh_state(mod, cfg, dev):
+    import torch
+
+    from repro_torch.train.trainer import init_train_state
+    from repro_torch.train.optimizer import AdamWConfig
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    return init_train_state(mod.init_params(cfg, gen, device=dev),
+                            AdamWConfig())
+
+
+def _gnn_mesh_refs(dev) -> dict:
+    """14.9's references: each model's step 0 on the whole graph, one
+    card, one process."""
+    import torch
+
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import make_train_step
+
+    g = _mesh_graph()
+    out = {}
+    for arch, mod, cfg in _gnn_mesh_models():
+        t0 = time.perf_counter()
+        step = make_train_step(_gnn_loss(mod, cfg), AdamWConfig())
+        _, m = step(_gnn_mesh_state(mod, cfg, dev),
+                    _gnn_mesh_batch(arch, g, dev))
+        out[arch] = {"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "s": time.perf_counter() - t0}
+        del step, m
+        torch.cuda.empty_cache()
+    return out
+
+
+def _gnn_mesh_rank(mesh, dev) -> dict:
+    """14.9 on each rank: one train step of each model through the GNN
+    cells' rank program with the ring hooks (`launch.cells`): the batch
+    laid out by the cells' specs, the ring under every gather and sum at
+    global ids, the gradient shares summed, AdamW."""
+    import torch
+
+    from repro_torch.launch import cells
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.utils import sharding
+    from repro_torch.utils.sharding import shard_tree
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    g = _mesh_graph()
+    out = {}
+    for arch, mod, cfg in _gnn_mesh_models():
+        whole = _gnn_mesh_batch(arch, g, dev)
+        batch = shard_tree(whole, cells._gnn_batch_specs(whole, mesh), mesh)
+        del whole
+        state = _gnn_mesh_state(mod, cfg, dev)
+        step = cells.gnn_train_step(cells.gnn_rank_loss(
+            arch, mod, cfg, mesh, cells.ring_hooks(mesh)), AdamWConfig(),
+            mesh)
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2 ** 30 if cuda else 0.0
+        sharding.comm_log.reset()
+        sync()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        sync()
+        out[arch] = {"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "ms": (time.perf_counter() - t0) * 1e3,
+                     "comm": sharding.comm_log.snapshot(),
+                     "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                                  if cuda else 0.0), "held_gib": held}
+        del state, step, batch, m
+    return out
+
+
+def _mesh_c_checks(c: dict, refs: dict) -> None:
+    """14.8-14.9's checks on rank 0's report (the ring's per-rank answers
+    gathered)."""
+    r = c["ring"]
+    if not all(r["gather_bitwise"]) or not all(all(x) for x in r["close"]):
+        raise AssertionError(f"ring ops at {RING_ROWS:,} rows: gather "
+                             f"bitwise by rank {r['gather_bitwise']}, "
+                             f"scatter / gather VJP / scatter VJP within "
+                             f"{RING_TOL} by rank {r['close']} (max errors "
+                             f"{r['err']})")
+    for arch, ref in refs.items():
+        got = c["gnn"][arch]
+        if abs(got["loss"] - ref["loss"]) > 1e-4 * abs(ref["loss"]) \
+                or abs(got["grad_norm"] - ref["grad_norm"]) \
+                > 1e-3 * ref["grad_norm"]:
+            raise AssertionError(f"{arch} ring step 0: loss {got['loss']} vs "
+                                 f"{ref['loss']} (rtol 1e-4), grad norm "
+                                 f"{got['grad_norm']} vs {ref['grad_norm']} "
+                                 f"(rtol 1e-3)")
+        if not got["comm"]["calls"].get("collective-permute"):
+            raise AssertionError(f"{arch} ring step: no collective-permute "
+                                 f"counted: {got['comm']['calls']}")
+    if c["launched"]:
+        raise AssertionError(f"mesh C launched kernels (by rank: "
+                             f"{c['launched']}); the ring and the GNN step "
+                             f"have none")
+
+
+def _mesh_c_log(c: dict, refs: dict, card: str) -> None:
+    r = c["ring"]
+
+    def med(ms):
+        return statistics.median(ms)
+
+    def permutes(comm):
+        calls = comm["calls"].get("collective-permute", 0) // RING_CALLS
+        mb = comm["bytes"].get("collective-permute", 0) / RING_CALLS / 1e6
+        return f"{calls} collective-permutes ({mb:.1f} MB)"
+
+    log(f"mesh ring ops: {RING_ROWS:,} x {RING_WIDTH} f32 table (ogb_products"
+        f"' 2,449,029 nodes padded), {RING_IDS:,} global ids ({RING_PAD:.0%}"
+        f" -1), a ring of 4 ranks over gloo on one card: ring_gather "
+        f"{med(r['gather_ms']):.1f} ms a call on rank 0 "
+        f"({permutes(r['gather_comm'])} a call), its VJP "
+        f"{med(r['gather_vjp_ms']):.1f} ms; ring_scatter_add "
+        f"{med(r['scatter_ms']):.1f} ms ({permutes(r['scatter_comm'])}"
+        f" a call), its VJP {med(r['scatter_vjp_ms']):.1f} ms | gather "
+        f"bitwise one card's index_select on every rank; scatter, gather "
+        f"VJP, scatter VJP within {RING_TOL} of one card's index_add_ / "
+        f"index_select (max errors over ranks "
+        + ", ".join(f"{max(e[i] for e in r['err']):.3g}" for i in (1, 2, 3))
+        + f") | peak GiB by rank: "
+        + ", ".join(f"{v:.2f}" for v in r["peak_gib"])
+        + " (of it held from earlier parts: "
+        + ", ".join(f"{v:.2f}" for v in r["held_gib"]) + f") | {card}")
+    for arch, ref in refs.items():
+        got = c["gnn"][arch]
+        log(f"mesh {arch} ring step: published width, 1 layer/block "
+            f"(reduced), {GNN_MESH_NODES:,} nodes x {GNN_MESH_EDGES:,} edges "
+            f"(reduced from ogb_products), rows and edges over 4 ranks, "
+            f"every gather and sum at global ids on the ring | loss "
+            f"{got['loss']:.6f} vs one card {ref['loss']:.6f} (rel "
+            f"{abs(got['loss'] - ref['loss']) / abs(ref['loss']):.2e}), grad "
+            f"norm {got['grad_norm']:.6f} vs {ref['grad_norm']:.6f} (rel "
+            f"{abs(got['grad_norm'] - ref['grad_norm']) / ref['grad_norm']:.2e}"
+            f") | step {got['ms']:.1f} ms on rank 0 (gloo on one card), "
+            f"collectives {_comm(got['comm'])} | peak {got['peak_gib']:.2f} "
+            f"GiB on rank 0 ({got['held_gib']:.2f} held from earlier parts) "
+            f"| one card {ref['s']:.1f} s | {card}")
+
+
 def _lm_batch_tokens(step: int, b: int, s: int, vocab: int):
     from repro_torch.data.synthetic import lm_batch
 
@@ -3408,8 +3781,8 @@ def _lm_batch_tokens(step: int, b: int, s: int, vocab: int):
 
 def mesh_training(dev, card, reset_counts, read_counts) -> dict:
     """Phase 14: the sharded mesh on one card.  Single-card f32 runs of
-    OLMo-1B's step 0 and mesh B's references first (freed before the
-    ranks start), then 4 ranks spawned as a (2, 2) mesh on the card,
+    OLMo-1B's step 0 and mesh B's and mesh C's references first (freed
+    before the ranks start), then 4 ranks spawned as a (2, 2) mesh on the card,
     joined over gloo (NCCL refuses two ranks on one device), then 2 ranks
     as a (1, 2) mesh that restore the 4-rank checkpoint.  Returns the six
     kernels' launches in the ranks (`l2_topk`'s on the sharded shortlist,
@@ -3443,8 +3816,10 @@ def mesh_training(dev, card, reset_counts, read_counts) -> dict:
     del params, g
     torch.cuda.empty_cache()
     t_ref = time.perf_counter() - t0
-    # mesh B's references (their launches are not the mesh path's)
+    # mesh B's and mesh C's references (their launches are not the mesh
+    # path's)
     refs_b = _mesh_b_refs(dev)
+    refs_c = _gnn_mesh_refs(dev)
     reset_counts()
 
     t0 = time.perf_counter()
@@ -3502,6 +3877,7 @@ def mesh_training(dev, card, reset_counts, read_counts) -> dict:
         raise AssertionError(f"compressed DP loss {dp['loss_dp']} vs "
                              f"{dp['loss_ref']}: not within 0.05")
     _mesh_b_checks(r4["b"], refs_b)
+    _mesh_c_checks(r4["c"], refs_c)
     ranks = [dict(zip(kernel_counters(), map(int, row)))
              for row in r4["launches"]]
     # the mesh paths that reach a kernel: the sharded shortlist (l2_topk)
@@ -3568,6 +3944,11 @@ def mesh_training(dev, card, reset_counts, read_counts) -> dict:
         f"{dp['loss_dp']:.5f} vs make_train_step {dp['loss_ref']:.5f} "
         f"(|diff| {abs(dp['loss_dp'] - dp['loss_ref']):.5f} < 0.05)")
     _mesh_b_log(r4["b"], refs_b, ranks, card)
+    _mesh_c_log(r4["c"], refs_c, card)
+    log(f"mesh C: ring ops {r4['c']['ring_s']:.1f} s, GNN ring steps "
+        f"{r4['c']['gnn_s']:.1f} s on rank 0, one-card references "
+        + ", ".join(f"{a} {v['s']:.1f} s" for a, v in refs_c.items())
+        + f"; kernel launches over both: none | {card}")
     log(f"phase 14 took {time.perf_counter() - t_phase:.1f} s | {card}")
     return {"ranks": ranks, "parent": parent}
 

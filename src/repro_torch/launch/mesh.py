@@ -13,18 +13,21 @@ NCCL where each rank has its own card), builds a `DeviceMesh` of the
 given shape and axis names (`device_mesh`), runs a module-level
 function on every rank and returns rank 0's result.  Collectives take
 the ranks' tensors on their device, over gloo on the card too; one that
-the backend refuses raises on every rank.  The reference's production
-meshes (256 and 512 chips, `make_production_mesh`) wait for the dry-run
-path.
+the backend refuses raises on every rank.  `make_production_mesh`
+gives the reference's production meshes (256 and 512 chips) over the
+current process group: the dry run (`launch.dryrun`) builds them on a
+fake group of that size, one process standing for rank 0.
 
 Functions, not module constants: importing this module never touches
 device state.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import math
+import os
 import queue
 import time
 import traceback
@@ -99,6 +102,17 @@ def device_mesh(shape: Sequence[int], axis_names: Sequence[str],
     return DeviceMesh(device_type, ranks, mesh_dim_names=tuple(axis_names))
 
 
+def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+    """(16, 16) ("data", "model") = 256 ranks, or (2, 16, 16) ("pod",
+    "data", "model") = 512, the pod axis carrying cross-pod data
+    parallelism; over the current process group, which must have that
+    many ranks (every rank calls).  A CPU mesh: the dry run's, whose
+    ranks hold meta tensors."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return device_mesh(shape, axes, "cpu")
+
+
 def backend_for(device_type: str, world: int) -> str:
     """NCCL where every rank has its own card; gloo for CPU ranks and for
     ranks that share a card (NCCL refuses two ranks on one device)."""
@@ -137,6 +151,29 @@ def _rank_main(rank, shape, axis_names, device, init_method, timeout,
             dist.destroy_process_group()
 
 
+_THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+
+
+@contextlib.contextmanager
+def _thread_env(threads: int | None):
+    """The BLAS / OpenMP thread counts that spawned ranks inherit (numpy's
+    BLAS reads them once, when it loads), set to `threads` while they
+    start; this process's own are left as they are."""
+    if not threads:
+        yield
+        return
+    saved = {k: os.environ.get(k) for k in _THREAD_VARS}
+    os.environ.update({k: str(threads) for k in _THREAD_VARS})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def run_ranks(fn: Callable, shape: Sequence[int],
               axis_names: Sequence[str] = ("data", "model"), *,
               device: str, init_method: str, args: tuple = (),
@@ -150,7 +187,8 @@ def run_ranks(fn: Callable, shape: Sequence[int],
     are enough; else every rank on that one card, over gloo).
     init_method: the group's rendezvous, given explicitly
     ("file:///path" or "tcp://localhost:port").  `threads` sets each
-    rank's torch threads.  Raises RuntimeError with the traceback of the
+    rank's torch threads and its BLAS / OpenMP threads (`_thread_env`).
+    Raises RuntimeError with the traceback of the
     first rank that fails (or dies), TimeoutError when the ranks have not
     all finished within `timeout` seconds (the group's own timeout too);
     either way every rank still running is stopped."""
@@ -164,8 +202,9 @@ def run_ranks(fn: Callable, shape: Sequence[int],
     procs = [ctx.Process(target=_rank_main, daemon=True, args=(
         r, tuple(shape), tuple(axis_names), device, init_method, timeout,
         threads, inbox, results)) for r in range(world)]
-    for p in procs:
-        p.start()
+    with _thread_env(threads):
+        for p in procs:
+            p.start()
     deadline = time.monotonic() + timeout
     out, done = None, set()
     try:

@@ -3,7 +3,7 @@
 segment-op message passing.
 
 Submodules are imported lazily (import repro_torch.models.gnn.<name>) to
-keep partial builds importable.  `ring_gather` (the mesh's distributed
-row gather and scatter behind the models' `gather_fn` / `scatter_fn`
-hooks) waits for mesh C (ROADMAP Queue 1 item 3).
+keep partial builds importable.  `ring_gather` holds the mesh's
+distributed row gather and scatter, which `launch.cells`' GNN rank
+program puts behind the models' `gather_fn` / `scatter_fn` hooks.
 """

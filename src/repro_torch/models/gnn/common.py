@@ -13,8 +13,9 @@ of the molecule cell's 32,768 triplet slots), which made a GraphCast
 step on the card take seconds.  On a CUDA device `index_add_` adds with
 float atomics, so a sum is not bitwise the same from run to run.
 
-`mlp_specs` (a sharding spec) waits for mesh C (ROADMAP Queue 1 item
-3).
+The reference's `mlp_specs` (replicated specs, which no code calls) is
+not ported: the GNN cells lay out the whole state replicated
+(`launch.cells`).
 """
 from __future__ import annotations
 

@@ -29,7 +29,7 @@ from ..._device import resolve_device
 from ...core.distances import f32_matmul
 from .common import (bessel_rbf, check_depth, clip_index, edge_mask,
                      edge_vectors, graph_energies, init_mlp, mlp_apply,
-                     scatter_rows, segment_sum, take_rows, tree_from_numpy)
+                     scatter_rows, take_rows, tree_from_numpy)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,21 +97,26 @@ def bilinear(mk: torch.Tensor, a: torch.Tensor,
 
 
 def forward(params, cfg: DimeNetConfig, batch, gather_fn=None,
-            scatter_fn=None) -> torch.Tensor:
+            scatter_fn=None, n_edges=None) -> torch.Tensor:
     """batch: species (N,), pos (N,3), edge_src/dst (E,), tri_in/tri_out
     (T,) edge-index pairs (kj -> ji), graph_ids, energy.  Per-graph
     energies.
 
     gather_fn(table, idx): row gather for the triplet -> edge-message
-    lookup; scatter_fn(values, idx, rows): the mirrored triplet -> edge
-    aggregation (-1 dropped).  The mesh's ring versions wait for the
-    sharded slice."""
+    lookup (and the triplets' edge geometry); scatter_fn(values, idx,
+    rows): the mirrored triplet -> edge aggregation and the edge -> atom
+    sum (-1 dropped).  On a mesh (`launch.cells`' GNN rank program) the
+    edges and triplets are this rank's blocks of global ids, species and
+    pos whole, graph_ids this rank's row block, `n_edges` the global
+    edge count, the hooks the mesh's (the ring, `ring_gather`), and the
+    energies this rank's partial sums; None keeps the single-device
+    path."""
     take = gather_fn or take_rows
     scat = scatter_fn or scatter_rows
     species = batch["species"]
     src, dst = batch["edge_src"], batch["edge_dst"]
     n = species.shape[0]
-    e = src.shape[0]
+    e = src.shape[0] if n_edges is None else n_edges
     with f32_matmul():
         emask = edge_mask(src)
         unit, r = edge_vectors(batch["pos"], src, dst)
@@ -129,10 +134,10 @@ def forward(params, cfg: DimeNetConfig, batch, gather_fn=None,
         ti_c = clip_index(ti, e)
         to_c = clip_index(to, e)
         # angle at j: between -unit(k->j) (incoming) and unit(j->i)
-        cos_t = torch.clamp(((-take_rows(unit, ti_c)) * take_rows(unit, to_c))
+        cos_t = torch.clamp(((-take(unit, ti_c)) * take(unit, to_c))
                             .sum(-1), -1.0, 1.0)
         sbf_ang = _legendre(cos_t, cfg.n_spherical)            # (T, n_sph)
-        sbf_rad = bessel_rbf(take_rows(r, ti_c), cfg.n_radial,
+        sbf_rad = bessel_rbf(take(r[:, None], ti_c)[:, 0], cfg.n_radial,
                              cfg.cutoff)                       # (T, n_rad)
         sbf = ((sbf_rad[:, :, None] * sbf_ang[:, None, :]).reshape(
             ti.shape[0], -1) * tmask[:, None])
@@ -150,15 +155,15 @@ def forward(params, cfg: DimeNetConfig, batch, gather_fn=None,
         for bp in params["blocks"]:
             m = checkpoint(block, m, bp, use_reentrant=False)
 
-        x = segment_sum(m, torch.where(emask, dst, n), n + 1)[:n]
+        x = scat(m, torch.where(emask, dst, -1), n)
         e_atom = mlp_apply(params["readout"], x)[:, 0]
         return graph_energies(e_atom, batch)
 
 
 def loss_fn(params, cfg: DimeNetConfig, batch, gather_fn=None,
-            scatter_fn=None) -> torch.Tensor:
+            scatter_fn=None, n_edges=None) -> torch.Tensor:
     e = forward(params, cfg, batch, gather_fn=gather_fn,
-                scatter_fn=scatter_fn)
+                scatter_fn=scatter_fn, n_edges=n_edges)
     return torch.mean((e - batch["energy"].float()) ** 2)
 
 

@@ -80,10 +80,19 @@ def _stack(mlps: list) -> dict:
     return tree_map(lambda *xs: torch.stack(xs), *mlps)
 
 
-def forward(params, cfg: GraphCastConfig, batch) -> torch.Tensor:
+def forward(params, cfg: GraphCastConfig, batch, gather_fn=None,
+            scatter_fn=None, n_nodes=None) -> torch.Tensor:
     """batch: node_feat (N, d_feat), edge_src/dst (E,), edge_feat (E,
-    d_edge).  Returns per-node predictions (N, n_vars) in cfg.dtype."""
+    d_edge).  Returns per-node predictions (N, n_vars) in cfg.dtype.
+
+    gather_fn(table, idx) / scatter_fn(values, idx, rows), with
+    `n_nodes` the node count the edge ids index: the hooks of a mesh
+    (`launch.cells`' GNN rank program: node arrays this rank's row block,
+    edges this rank's block of global ids; the source and destination
+    rows in one gather a layer, the sum aggregation through the
+    scatter).  None keeps the single-device path."""
     n = batch["node_feat"].shape[0]
+    n_all = n if n_nodes is None else n_nodes
     dt = getattr(torch, cfg.dtype)
     src, dst = batch["edge_src"], batch["edge_dst"]
     mask = edge_mask(src)
@@ -91,12 +100,26 @@ def forward(params, cfg: GraphCastConfig, batch) -> torch.Tensor:
     e_total = src.shape[0]
     if e_total % nc:
         raise ValueError(f"{e_total} edges do not split into {nc} chunks")
+    if scatter_fn is not None and cfg.aggregator != "sum":
+        raise ValueError(f"a scatter_fn sums; aggregator "
+                         f"{cfg.aggregator!r}")
 
     def chunk(e_c, xs, xd, mlp):
         return e_c + mlp_apply(mlp, torch.cat([e_c, xs, xd], -1))
 
+    def ends(x):
+        if gather_fn is None:
+            return gather_src_dst(x, src, dst)
+        return gather_fn(x, torch.cat([src, dst])).split(e_total)
+
+    def aggregate(e):
+        if scatter_fn is None:
+            return scatter_to_nodes(e, dst, n, mask, agg=cfg.aggregator)
+        return scatter_fn(torch.where(mask[:, None], e, 0.0),
+                          torch.where(mask, dst, -1), n_all)
+
     def body(x, e, lp):
-        xs, xd = gather_src_dst(x, src, dst)
+        xs, xd = ends(x)
         if nc == 1:
             e = chunk(e, xs, xd, lp["edge_mlp"])
         else:
@@ -105,7 +128,7 @@ def forward(params, cfg: GraphCastConfig, batch) -> torch.Tensor:
             e = torch.cat([
                 checkpoint(chunk, *part, lp["edge_mlp"], use_reentrant=False)
                 for part in zip(e.chunk(nc), xs.chunk(nc), xd.chunk(nc))])
-        agg = scatter_to_nodes(e, dst, n, mask, agg=cfg.aggregator)
+        agg = aggregate(e)
         x = x + mlp_apply(lp["node_mlp"], torch.cat([x, agg], -1))
         return x, e
 

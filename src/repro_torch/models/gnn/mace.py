@@ -101,8 +101,10 @@ def cg_product(cg: torch.Tensor, a: torch.Tensor,
 
 
 def forward_energy(params, cfg: MACEConfig, batch,
-                   gather_fn=None, scatter_fn=None) -> torch.Tensor:
-    """batch as `nequip.forward_energy`'s; per-graph energies."""
+                   gather_fn=None, scatter_fn=None,
+                   n_nodes=None) -> torch.Tensor:
+    """batch, hooks and `n_nodes` as `nequip.forward_energy`'s; per-graph
+    energies."""
     take = gather_fn or take_rows
     scat = scatter_fn or scatter_rows
     species = batch["species"]
@@ -119,7 +121,7 @@ def forward_energy(params, cfg: MACEConfig, batch,
         for lp in params["layers"]:
             # --- 1. atomic basis A ---------------------------------------
             a = point_messages(feats, lp["radial"], cfg, batch, mask, rbf,
-                               ylm, cgs, take, scat)
+                               ylm, cgs, take, scat, n_nodes)
             a = {l: a[l] @ lp["mix_a"][str(l)] for l in a}
             # --- 2. product basis B (correlation 2 and 3, channel-wise) --
             b = dict(a)                                        # order 1
@@ -142,7 +144,7 @@ def forward_energy(params, cfg: MACEConfig, batch,
 
 
 def loss_fn(params, cfg: MACEConfig, batch, gather_fn=None,
-            scatter_fn=None) -> torch.Tensor:
+            scatter_fn=None, n_nodes=None) -> torch.Tensor:
     e = forward_energy(params, cfg, batch, gather_fn=gather_fn,
-                       scatter_fn=scatter_fn)
+                       scatter_fn=scatter_fn, n_nodes=n_nodes)
     return torch.mean((e - batch["energy"].float()) ** 2)

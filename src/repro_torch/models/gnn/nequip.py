@@ -112,13 +112,16 @@ def edge_basis(cfg, batch):
 
 
 def point_messages(feats, lp_radial, cfg, batch, mask, rbf, ylm, cgs,
-                   take, scat) -> dict:
+                   take, scat, n_nodes=None) -> dict:
     """sum over CG paths of the edge messages, aggregated at the
     destination atoms: {l3: (N, 2l3+1, C)} (NequIP's message, MACE's
-    atomic basis A)."""
+    atomic basis A).  `n_nodes`: the node count that the edge ids index
+    (None: the features' rows; on a mesh the global count, the features
+    this rank's row block, which `take` and `scat` read and write)."""
     src, dst = batch["edge_src"], batch["edge_dst"]
     n = feats[0].shape[0]
-    s_idx = clip_index(src, n)
+    n_all = n if n_nodes is None else n_nodes
+    s_idx = clip_index(src, n_all)
     d_idx = torch.where(mask, dst, -1)
     out = {l: feats[0].new_zeros((n, DIMS[l], cfg.channels))
            for l in range(cfg.l_max + 1)}
@@ -128,19 +131,24 @@ def point_messages(feats, lp_radial, cfg, batch, mask, rbf, ylm, cgs,
             s_idx.shape[0], *feats[l1].shape[1:])                # (E, I, C)
         m = torch.where(mask[:, None, None], cg_message(cg, v, ylm[l2], w),
                         0.0)
-        agg = scat(m.reshape(m.shape[0], -1), d_idx, n)
+        agg = scat(m.reshape(m.shape[0], -1), d_idx, n_all)
         out[l3] = out[l3] + agg.reshape(n, m.shape[1], cfg.channels)
     return out
 
 
 def forward_energy(params, cfg: NequIPConfig, batch,
-                   gather_fn=None, scatter_fn=None) -> torch.Tensor:
+                   gather_fn=None, scatter_fn=None,
+                   n_nodes=None) -> torch.Tensor:
     """batch: species (N,) int, pos (N, 3), edge_src/dst (E,), graph_ids
     (N,), energy (n_graphs,).  Returns per-graph energy (n_graphs,).
 
     gather_fn(table_2d, idx): row gather for the per-edge source-feature
     lookup; scatter_fn(values, idx, rows): the mirrored aggregation (-1
-    dropped).  The mesh's ring versions wait for the sharded slice."""
+    dropped).  On a mesh (`launch.cells`' GNN rank program) species and
+    graph_ids are this rank's row block, pos whole, the edges this rank's
+    block of global ids, `n_nodes` the global node count, the hooks the
+    mesh's (the ring, `ring_gather`), and the energies this rank's
+    partial sums; None keeps the single-device path."""
     take = gather_fn or take_rows
     scat = scatter_fn or scatter_rows
     species = batch["species"]
@@ -154,7 +162,7 @@ def forward_energy(params, cfg: NequIPConfig, batch,
 
         for lp in params["layers"]:
             msgs = point_messages(feats, lp["radial"], cfg, batch, mask, rbf,
-                                  ylm, cgs, take, scat)
+                                  ylm, cgs, take, scat, n_nodes)
             # self-interaction + gate
             gates = torch.sigmoid(mlp_apply(lp["gate"], feats[0][:, 0, :]))
             new = {}
@@ -168,9 +176,9 @@ def forward_energy(params, cfg: NequIPConfig, batch,
 
 
 def loss_fn(params, cfg: NequIPConfig, batch, gather_fn=None,
-            scatter_fn=None) -> torch.Tensor:
+            scatter_fn=None, n_nodes=None) -> torch.Tensor:
     e = forward_energy(params, cfg, batch, gather_fn=gather_fn,
-                       scatter_fn=scatter_fn)
+                       scatter_fn=scatter_fn, n_nodes=n_nodes)
     return torch.mean((e - batch["energy"].float()) ** 2)
 
 

@@ -262,12 +262,15 @@ class DIN(nn.Module):
         _, short = l2_topk(q, cand, kk, backend=backend)
         return short.long().clamp(0, n_candidates - 1)
 
-    def rerank(self, batch: dict, items: torch.Tensor, k: int):
+    def rerank(self, batch: dict, items: torch.Tensor, k: int, mesh=None,
+               model_axis="model"):
         """Stage (b) of `retrieval_step`: score each row's (B, kk) candidate
         items with the full DIN, one forward over B * kk rows, and keep
         the k best.  Returns (scores (B, k) descending, item ids (B, k));
         equal scores keep the lower candidate position first, as
-        `jax.lax.top_k` does."""
+        `jax.lax.top_k` does.  With a mesh: `batch` and `items` are this
+        rank's rows, the tables' lookups `sharded_lookup` over
+        `model_axis`."""
         bt = self._batch(batch)
         b, kk = items.shape
         if k > kk:
@@ -283,7 +286,7 @@ class DIN(nn.Module):
                "hist_len": per_candidate(bt["hist_len"]),
                "target_item": flat,
                "target_cate": (flat % self.cfg.n_cates).to(torch.int32)}
-        scores = self.forward_scores(sub).reshape(b, kk)
+        scores = self.forward_scores(sub, mesh, model_axis).reshape(b, kk)
         top_s, top_i = torch.sort(scores, dim=1, descending=True, stable=True)
         return top_s[:, :k], torch.gather(items, 1, top_i[:, :k])
 
@@ -366,6 +369,48 @@ def _module_names(params: dict) -> dict:
     return out
 
 
+def _module(params: dict, cfg: DINConfig) -> DIN:
+    """A DIN holding a parameter tree's own tensors (not trainable)."""
+    return DIN(cfg, params["item_emb"], params["cate_emb"],
+               params["attn"]["w"], params["attn"]["b"], params["mlp"]["w"],
+               params["mlp"]["b"])
+
+
+def forward_scores(params: dict, cfg: DINConfig, batch: dict, mesh=None,
+                   model_axis="model", batch_axes=()) -> torch.Tensor:
+    """CTR logits (B,) from a parameter tree in the reference's layout
+    (the reference's module-level `forward_scores`), differentiable in
+    its leaves.  With a mesh: the leaves laid out by `param_specs`, the
+    batch global, the logits this rank's rows over `batch_axes`; each
+    leaf goes through `utils.sharding.compute_view`, so its gradient is
+    summed over the ranks that saw other rows."""
+    kw = {}
+    if mesh is not None:
+        params = tree_map(
+            lambda p: sharding.compute_view(p, mesh, tuple(batch_axes)),
+            params)
+        kw = dict(mesh=mesh, model_axis=model_axis, batch_axes=batch_axes)
+    return torch.func.functional_call(_skeleton(cfg), _module_names(params),
+                                      (batch,), kw)
+
+
+def retrieval_step(params: dict, cfg: DINConfig, batch: dict,
+                   n_candidates: int, k: int = 100, mesh=None,
+                   model_axis="model", batch_axes=(), backend: str = "auto"):
+    """`DIN.retrieval_step` from a parameter tree (the reference's
+    module-level form).  With a mesh (the tables laid out by
+    `param_specs`): the shortlist on this rank's rows over `batch_axes`
+    (`DIN.shortlist`), re-ranked with the tables' lookups over
+    `model_axis`; this rank's rows of (scores, ids)."""
+    model = _module(params, cfg)
+    if mesh is None:
+        return model.retrieval_step(batch, n_candidates, k, backend)
+    short = model.shortlist(batch, n_candidates, backend, mesh, model_axis,
+                            batch_axes)
+    rows = _rows(model._batch(batch), mesh, batch_axes)
+    return model.rerank(rows, short, k, mesh, model_axis)
+
+
 def loss_fn(params: dict, cfg: DINConfig, batch: dict, mesh=None,
             model_axis="model", batch_axes=()) -> torch.Tensor:
     """Mean binary cross-entropy of the CTR logits against batch["label"]
@@ -379,14 +424,8 @@ def loss_fn(params: dict, cfg: DINConfig, batch: dict, mesh=None,
     sum over the batch, added over `batch_axes`.  Gradients reach each
     leaf's block (summed over `batch_axes`, whose ranks saw other
     rows)."""
-    kw = {}
-    if mesh is not None:
-        params = tree_map(
-            lambda p: sharding.compute_view(p, mesh, tuple(batch_axes)),
-            params)
-        kw = dict(mesh=mesh, model_axis=model_axis, batch_axes=batch_axes)
-    logits = torch.func.functional_call(_skeleton(cfg), _module_names(params),
-                                        (batch,), kw).float()
+    logits = forward_scores(params, cfg, batch, mesh, model_axis,
+                            batch_axes).float()
     y = _rows({"y": to_device(batch["label"], logits.device)}, mesh,
               batch_axes)["y"].float()
     bce = (torch.maximum(logits, torch.zeros_like(logits)) - logits * y

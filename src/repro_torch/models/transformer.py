@@ -836,7 +836,7 @@ def decode_step(params, cfg: LMConfig, tokens, positions, caches,
         _check_tp(cfg, ctx)
     elif kv_mode in ("seq", "seq_all"):
         for what, n in (("vocab", cfg.vocab), ("q_dim", cfg.q_dim),
-                        ("kv_dim", cfg.kv_dim), ("d_ff", cfg.d_ff or 1)):
+                        ("kv_dim", cfg.kv_dim), ("d_ff", cfg.d_ff or ctx.tp)):
             sharding.check_divisible(n, ctx.tp, what)
         seq_axes = ((*ctx.batch_axes, ctx.model_axis)
                     if kv_mode == "seq_all" else (ctx.model_axis,))

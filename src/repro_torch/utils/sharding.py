@@ -23,14 +23,19 @@ a dim that its axes do not divide raises (`ShardCtx.sanitize` drops
 such a sharding first where the reference does).
 
 Collectives (`all_reduce` with a sum or a max, `all_gather`,
-`reduce_scatter`, `all_to_all`, `broadcast`, `reduce`) run on a mesh axis's process group and are counted in
-`comm_log` by kind: calls and payload bytes.  They take the tensors
+`reduce_scatter`, `all_to_all`, `broadcast`, `reduce`, and
+`ring_shift`, one step of a ring over one axis or over all of a
+mesh's axes) run on a mesh axis's process group and are counted in
+`comm_log` by kind: calls, payload bytes (what this rank sends) and
+result bytes (what it holds after: the gathered whole of an all-gather,
+the one block of a reduce-scatter -- the reference's HLO byte count).  They take the tensors
 where they lie, on the card too: a backend that refuses a device raises,
 and nothing moves to the host instead.  The autograd faces
 (`reduce_from`, `copy_to`, `gather_view`, `compute_view`) are Megatron's
 conjugate pairs: an all-reduce forward is an identity backward and the
-reverse, an all-gather forward is a reduce-scatter backward; the
-tiled all-to-all is its own inverse exchange backward.
+reverse, an all-gather forward is a reduce-scatter backward and the
+reverse (`scatter_view`); the tiled all-to-all is its own inverse
+exchange backward.
 """
 from __future__ import annotations
 
@@ -209,13 +214,18 @@ def local_block(mesh, spec: Optional[P], x: torch.Tensor) -> torch.Tensor:
 
 def shard_leaf(mesh, spec: Optional[P], x):
     """The full tensor `x` (the same on every rank; a DTensor is gathered
-    first) laid out as `spec`: a DTensor holding a copy of this rank's
-    block, or, when `spec` replicates it over the whole mesh, the plain
-    tensor.  No communication for a plain `x`; not differentiable."""
+    first, unless it is laid out as `spec` already on `mesh`, when it is
+    returned as it is) laid out as `spec`: a DTensor holding a copy of
+    this rank's block, or, when `spec` replicates it over the whole mesh,
+    the plain tensor.  No communication for a plain `x`; not
+    differentiable."""
     if x is None:
         return None
-    x = full_tensor(x)
     where = placements(mesh, spec)
+    if (isinstance(x, DTensor) and x.device_mesh is mesh
+            and tuple(x.placements) == where):
+        return x            # laid out as asked already: no gather
+    x = full_tensor(x)
     if not any(isinstance(p, Shard) for p in where):
         return x
     block = local_block(mesh, spec, x.detach()).clone()
@@ -294,9 +304,11 @@ class CommLog:
     def reset(self) -> None:
         self.calls = collections.Counter()
         self.bytes = collections.Counter()
+        self.out_bytes = collections.Counter()
 
     def snapshot(self) -> dict:
-        return {"calls": dict(self.calls), "bytes": dict(self.bytes)}
+        return {"calls": dict(self.calls), "bytes": dict(self.bytes),
+                "out_bytes": dict(self.out_bytes)}
 
 
 comm_log = CommLog()
@@ -306,10 +318,18 @@ def _group(mesh, axis: str):
     return mesh.get_group(axis)
 
 
-def _count(kind: str, payload: torch.Tensor) -> None:
-    """One collective of `kind` moving `payload` in `comm_log`."""
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def _count(kind: str, payload: torch.Tensor,
+           result: Optional[torch.Tensor] = None) -> None:
+    """One collective of `kind` sending `payload` and leaving `result`
+    (`payload` where that is the same size) in `comm_log`."""
     comm_log.calls[kind] += 1
-    comm_log.bytes[kind] += payload.numel() * payload.element_size()
+    comm_log.bytes[kind] += _nbytes(payload)
+    comm_log.out_bytes[kind] += _nbytes(payload if result is None
+                                        else result)
 
 
 # torch >= 2.13 names the two tensor collectives *_single
@@ -342,7 +362,7 @@ def all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     src = x.movedim(dim, 0).contiguous()
     buf = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
                       dtype=x.dtype, device=x.device)
-    _count("all_gather", src)
+    _count("all_gather", src, buf)
     _all_gather_1(buf, src, group=_group(mesh, axis))
     return buf.movedim(0, dim)
 
@@ -357,7 +377,7 @@ def reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     src = x.movedim(dim, 0).contiguous()
     out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
                       dtype=x.dtype, device=x.device)
-    _count("reduce_scatter", src)
+    _count("reduce_scatter", src, out)
     _reduce_scatter_1(out, src, group=_group(mesh, axis))
     return out.movedim(0, dim)
 
@@ -376,6 +396,45 @@ def _all_to_all(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     _count("all_to_all", src)
     dist.all_to_all_single(out, src, group=_group(mesh, axis))
     return out.movedim(0, dim)
+
+
+def ring_group(mesh, axes):
+    """(process group, this rank's position, ring size) of the ring over
+    `axes`: one mesh axis (its group), or every axis of a mesh laid over
+    the whole world in rank order (the world group, the position the
+    flat coordinate).  Other sets of axes raise."""
+    axes = _axes(axes)
+    me, p = coordinate(mesh, axes)
+    if len(axes) == 1:
+        return _group(mesh, axes[0]), me, p
+    if (axes == axis_names(mesh)
+            and mesh.mesh.flatten().tolist()
+            == list(range(dist.get_world_size()))):
+        return dist.group.WORLD, me, p
+    raise ValueError(f"a ring over {axes} of a mesh {axis_names(mesh)} "
+                     f"that is not the whole world in rank order")
+
+
+def ring_shift(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """One step of the ring over `axes` (`ring_group`): `x` sent to the
+    next rank, (me + 1) % P, the previous rank's returned (the
+    reference's `lax.ppermute` with perm [(j, j + 1 mod P)]).  An
+    `all_to_all_single` whose one nonzero split goes to the next rank
+    and comes from the previous one; counted as "collective-permute", the
+    reference's name.  A backend that refuses it raises."""
+    group, me, p = ring_group(mesh, axes)
+    if p == 1:
+        return x
+    src = x.contiguous()
+    out = torch.empty_like(src)
+    rows = src.shape[0]
+    send = [0] * p
+    recv = [0] * p
+    send[(me + 1) % p] = rows
+    recv[(me - 1) % p] = rows
+    _count("collective-permute", src)
+    dist.all_to_all_single(out, src, recv, send, group=group)
+    return out
 
 
 def broadcast(x: torch.Tensor, mesh, axis: str, src: int) -> torch.Tensor:
@@ -445,6 +504,17 @@ class _Gather(torch.autograd.Function):
         return reduce_scatter(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
 
 
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return reduce_scatter(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis, dim):
@@ -501,6 +571,11 @@ def all_to_all(x: torch.Tensor, mesh, axis: str,
 def gather_view(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     """All-gather along `dim` over `axis` forward, reduce-scatter back."""
     return _Gather.apply(x, mesh, axis, dim)
+
+
+def scatter_view(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """Reduce-scatter along `dim` over `axis` forward, all-gather back."""
+    return _Scatter.apply(x, mesh, axis, dim)
 
 
 def compute_view(p, mesh, batch: tuple, skip_dim0: bool = False):

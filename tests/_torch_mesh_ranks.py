@@ -11,8 +11,13 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch import cells
 from repro_torch.launch.mesh import device_mesh
 from repro_torch.models import moe
+from repro_torch.models.gnn import dimenet, graphcast, mace, nequip
+from repro_torch.models.gnn.common import tree_from_numpy
+from repro_torch.models.gnn.ring_gather import ring_gather, ring_scatter_add
 from repro_torch.models.recsys import din
 from repro_torch.models.recsys.embedding import sharded_lookup
 from repro_torch.models.transformer import (LMConfig, ShardCtx, cache_specs,
@@ -20,13 +25,14 @@ from repro_torch.models.transformer import (LMConfig, ShardCtx, cache_specs,
                                             lm_param_specs, params_from_jax,
                                             serve_prefill)
 from repro_torch.train import checkpoint as ckpt
-from repro_torch.train.optimizer import AdamWConfig, opt_state_specs
+from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
+                                         opt_state_specs)
 from repro_torch.train.trainer import (init_train_state, loss_and_grads,
                                        make_manual_dp_step, make_train_step)
 from repro_torch.utils import sharding
-from repro_torch.utils.sharding import (P, all_gather, full_tensor, local,
-                                        local_block, ns, placements,
-                                        shard_tree)
+from repro_torch.utils.sharding import (P, all_gather, coordinate,
+                                        full_tensor, local, local_block, ns,
+                                        placements, shard_tree)
 from repro_torch.utils.tree import flatten_with_path
 
 
@@ -315,6 +321,85 @@ def moe_grad_case(mesh, case) -> dict:
     return {"grads": grads, "x_by_rank": _every_rank(rows.grad, mesh)}
 
 
+RING_AXES = ("data", "model")
+GNN_MODULES = {"nequip": nequip, "mace": mace, "dimenet": dimenet,
+               "graphcast": graphcast}
+
+
+def ring_case(mesh, case) -> dict:
+    """The ring ops over both axes of this mesh (a ring of 4) at the
+    reference test's inputs: the gather's output and the gradient of
+    sum(out^2) at the table, the scatter's output and the gradient at the
+    values, each as the whole array (every rank's block), and the
+    collective-permutes this rank ran."""
+    me, p = coordinate(mesh, RING_AXES)
+    spec = P(RING_AXES, None)
+
+    def block(a):
+        n = a.shape[0] // p
+        return torch.from_numpy(a[me * n:(me + 1) * n].copy())
+
+    sharding.comm_log.reset()
+    tab = block(case["table"]).requires_grad_(True)
+    out = ring_gather(tab, block(case["idx"]), mesh, RING_AXES)
+    (out ** 2).sum().backward()
+    vals = block(case["vals"]).requires_grad_(True)
+    s = ring_scatter_add(vals, block(case["idx"]), mesh, RING_AXES,
+                         case["table"].shape[0] // p)
+    (s ** 2).sum().backward()
+    permutes = sharding.comm_log.calls["collective-permute"]
+    whole = {k: _from_blocks(v.detach(), mesh, spec, case[src].shape)
+             for k, v, src in (("out", out, "out"), ("g_table", tab.grad,
+                                                     "table"),
+                               ("s", s, "table"), ("g_vals", vals.grad,
+                                                   "vals"))}
+    return dict(whole, permutes=permutes)
+
+
+def _gnn_batch(mesh, batch: dict) -> dict:
+    """A whole batch (numpy) laid out by the GNN cells' specs."""
+    bt = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+    return shard_tree(bt, cells._gnn_batch_specs(bt, mesh), mesh)
+
+
+def gnn_case(mesh, case) -> dict:
+    """The GNN cells' rank program at reduced configs: each run's loss and
+    summed gradients (whole, every rank the same) with the ring hooks,
+    the plain ones or the cells' gated ones, and the permutes it ran;
+    then one train step of a nequip cell (`cells._build_gnn`, reduced
+    config, a small molecule shape) from the case's state."""
+    out = {}
+    for name, arch, kind in case["runs"]:
+        mod = GNN_MODULES[arch]
+        cfg = case["cfgs"][arch]
+        params = tree_from_numpy(case["params"][arch], "cpu")
+        hooks = {"ring": cells.ring_hooks, "plain": cells.plain_hooks}[kind](
+            mesh) if kind != "gated" else cells.gated_hooks(arch, mesh)
+        loss_fn = cells.gnn_rank_loss(arch, mod, cfg, mesh, hooks)
+        sharding.comm_log.reset()
+        loss, _, g = loss_and_grads(loss_fn, params,
+                                    _gnn_batch(mesh, case["batches"][arch]))
+        g = cells.sum_grads(g, mesh)
+        out[name] = {"loss": float(loss),
+                     "grads": {k: v.numpy().copy()
+                               for k, v in flatten_with_path(g)},
+                     "comm": sharding.comm_log.snapshot()}
+    stub = type("Arch", (), {"ARCH_ID": "nequip", "model_config":
+                             staticmethod(lambda: case["cfgs"]["nequip"])})
+    cell = cells._build_gnn(stub, ShapeSpec(**case["cell_shape"]), mesh, {})
+    params = tree_from_numpy(case["params"]["nequip"], "cpu")
+    state = {"step": torch.zeros((), dtype=torch.int32), "params": params,
+             "opt": adamw_init(params)}
+    batch = {k: torch.from_numpy(np.asarray(v))
+             for k, v in case["cell_batch"].items()}
+    new, metrics = cell.fn(*cell.rank_args(mesh, (state, batch)))
+    out["cell"] = {"loss": float(metrics["loss"]),
+                   "params": {k: v.numpy().copy()
+                              for k, v in flatten_with_path(new["params"])},
+                   "step": int(new["step"])}
+    return out
+
+
 def mesh4(mesh, cases: dict) -> dict:
     """Every case of the 4-rank run, on this (2, 2) mesh."""
     out = {"coordinate": tuple(mesh.get_coordinate())}
@@ -327,6 +412,8 @@ def mesh4(mesh, cases: dict) -> dict:
     out["moe_drop"] = moe_drop_case(mesh, cases["moe_drop"])
     out["moe_grad"] = moe_grad_case(mesh, cases["moe_grad"])
     out["comm"] = sharding.comm_log.snapshot()
+    out["ring"] = ring_case(mesh, cases["ring"])
+    out["gnn"] = gnn_case(mesh, cases["gnn"])
     return out
 
 

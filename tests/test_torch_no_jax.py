@@ -79,7 +79,11 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.configs.graphcast_cfg",
             "repro_torch.configs.nequip_cfg", "repro_torch.configs.mace_cfg",
             "repro_torch.configs.dimenet_cfg",
-            "repro_torch.utils.sharding"} <= set(mods)
+            "repro_torch.utils.sharding",
+            "repro_torch.models.gnn.ring_gather", "repro_torch.launch.cells",
+            "repro_torch.launch.dryrun", "repro_torch.roofline",
+            "repro_torch.roofline.analysis",
+            "repro_torch.roofline.op_count"} <= set(mods)
     code = "\n".join([
         "import importlib, sys, runpy",
         "for name in ('jax', 'jaxlib', 'repro'):",

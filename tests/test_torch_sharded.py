@@ -47,6 +47,7 @@ import pytest
 import torch
 
 import _torch_mesh_ranks as ranks
+from test_torch_ring_ops import ring_reference
 from repro.configs import registry as jregistry
 from repro.data.synthetic import din_batch, lm_batch
 from repro.models import layers as jlayers
@@ -58,14 +59,20 @@ from repro.models.recsys import din as jdin
 from repro.train import optimizer as jopt
 from repro.train import trainer as jtrainer
 from repro_torch.configs import registry
+from repro_torch.data.synthetic import molecules_batch, random_graph
 from repro_torch.launch.mesh import run_ranks
+from repro_torch.models.gnn import dimenet, graphcast, mace, nequip
+from repro_torch.models.gnn.common import tree_from_numpy
 from repro_torch.models import attention, moe
 from repro_torch.models import transformer as tf
 from repro_torch.models.recsys import din
 from repro_torch.models.recsys.embedding import sharded_lookup
-from repro_torch.train.optimizer import opt_state_specs
+from repro_torch.train.optimizer import AdamWConfig, opt_state_specs
+from repro_torch.train.trainer import (init_train_state, loss_and_grads,
+                                       make_train_step)
 from repro_torch.utils import sharding
 from repro_torch.utils.sharding import P
+from repro_torch.utils.tree import flatten_with_path
 
 TP = dict(name="tp", n_layers=2, d_model=64, n_heads=8, n_kv_heads=4,
           d_head=16, d_ff=128, vocab=256, remat="none", loss_chunks=2,
@@ -220,6 +227,63 @@ def _dp_input():
                 size=(4, 5, 3)).astype(np.float32)}
 
 
+GNN = {"nequip": nequip, "mace": mace, "dimenet": dimenet,
+       "graphcast": graphcast}
+# (name, arch, hooks): the ring below the gates, the plain hooks, and
+# GraphCast's (the gated hooks, which never ring for it)
+GNN_RUNS = [("nequip", "nequip", "ring"), ("mace", "mace", "ring"),
+            ("dimenet", "dimenet", "ring"), ("nequip_plain", "nequip", "plain"),
+            ("dimenet_plain", "dimenet", "plain"),
+            ("graphcast", "graphcast", "gated")]
+
+
+def _pad(a, n):
+    return np.concatenate([a, -np.ones(n, a.dtype)])
+
+
+def _mol(n_mol, n_edges, pad, seed=2):
+    """molecules_batch of n_mol x 10 atoms, `pad` -1 edges, species
+    abs(labels) % 8, N(0, 1) energies (tests/test_torch_gnn.py's)."""
+    mol, gid = molecules_batch(n_mol, 10, n_edges, seed=seed)
+    return {"species": (np.abs(mol.labels) % 8).astype(np.int32),
+            "pos": mol.pos, "edge_src": _pad(mol.edge_src, pad),
+            "edge_dst": _pad(mol.edge_dst, pad), "graph_ids": gid,
+            "energy": np.random.default_rng(seed).normal(size=n_mol)
+            .astype(np.float32)}
+
+
+def _gnn_input():
+    """Reduced configs, port-drawn parameters, 4 molecules of 10 atoms
+    (40 nodes, 104 edge slots, 416 triplet slots: each a multiple of the
+    4 ranks); GraphCast on a 40-node random graph; the nequip cell's
+    molecule shape (n 40, e 128) and batch."""
+    cfgs = {a: registry.get_arch(a).model_config(reduced=True) for a in GNN}
+    params = {a: _np(m.init_params(cfgs[a], torch.Generator().manual_seed(i),
+                                   device="cpu"))
+              for i, (a, m) in enumerate(GNN.items())}
+    mol = _mol(4, 24, 8)
+    tri = dimenet.build_triplets(mol["edge_src"], mol["edge_dst"],
+                                 max_triplets=4 * len(mol["edge_src"]))
+    gc = cfgs["graphcast"]
+    g = random_graph(40, 96, d_feat=gc.d_feat, seed=1)
+    rng = np.random.default_rng(101)
+    batches = {"nequip": mol, "mace": mol,
+               "dimenet": dict(mol, tri_in=tri[0], tri_out=tri[1]),
+               "graphcast": {
+                   "node_feat": g.node_feat, "edge_src": _pad(g.edge_src, 8),
+                   "edge_dst": _pad(g.edge_dst, 8),
+                   "edge_feat": np.concatenate([g.edge_feat, rng.normal(
+                       size=(8, gc.d_edge)).astype(np.float32)]),
+                   "targets": rng.normal(size=(40, gc.n_vars)).astype(
+                       np.float32),
+                   "node_mask": np.ones(40, np.float32)}}
+    return {"cfgs": cfgs, "params": params, "batches": batches,
+            "runs": GNN_RUNS,
+            "cell_shape": dict(name="molecule", kind="train", n_nodes=10,
+                               n_edges=24, batch_graphs=4),
+            "cell_batch": _mol(4, 24, 32, seed=3)}
+
+
 @pytest.fixture(scope="module")
 def cases(tmp_path_factory):
     d = tmp_path_factory.mktemp("ckpt")
@@ -231,7 +295,8 @@ def cases(tmp_path_factory):
                            0, 64, (4, 5)).astype(np.int32)},
             "din": _din_input(), "dp": _dp_input(),
             "moe": _lm_input(MOE, seed=1, steps=0), "decode": _decode_input(),
-            "moe_drop": _moe_drop_input(), "moe_grad": _moe_grad_input()}
+            "moe_drop": _moe_drop_input(), "moe_grad": _moe_grad_input(),
+            "ring": ring_reference(d / "ring.npz"), "gnn": _gnn_input()}
 
 
 @pytest.fixture(scope="module")
@@ -649,6 +714,76 @@ def test_mesh_b_collectives_are_counted(run4):
 
 
 # ---------------------------------------------------------------------------
+# Mesh C: the ring ops and the GNN cells' rank program
+# ---------------------------------------------------------------------------
+def test_ring_ops_on_gloo_match_reference(cases, run4):
+    """ring_gather / ring_scatter_add over the 4 gloo ranks of the (2, 2)
+    mesh against the reference's on 4 fake XLA devices: the gather's
+    forward bitwise, the scatter and both VJPs within 1e-5 (-1 pads in
+    the ids); 3 + 4 permutes for the gather, 4 + 3 for the scatter."""
+    got, want = run4["ring"], cases["ring"]
+    np.testing.assert_array_equal(got["out"], want["out"])
+    for k in ("g_table", "s", "g_vals"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-5,
+                                   err_msg=k)
+    assert got["permutes"] == 14
+
+
+def _meshless(arch, cfg, params, batch):
+    """(loss, {path: grad}) of the single-device step on the whole batch
+    (GraphCast's loss the cells' masked mean)."""
+    m = GNN[arch]
+    bt = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+    loss, _, g = loss_and_grads(lambda p, b: (m.loss_fn(p, cfg, b), {}),
+                                tree_from_numpy(params, "cpu"), bt)
+    return float(loss), {k: v.numpy() for k, v in flatten_with_path(g)}
+
+
+@pytest.mark.parametrize("name,arch,kind", GNN_RUNS)
+def test_gnn_rank_program_matches_meshless(cases, run4, name, arch, kind):
+    """The cells' rank program on the (2, 2) mesh, rows and edges split
+    over all 4 ranks: loss and every gradient leaf (summed over the
+    ranks) within the GNN bar of the single-device step; the ring's
+    permutes counted where the ring hooks run, none elsewhere."""
+    c = cases["gnn"]
+    got = run4["gnn"][name]
+    loss, grads = _meshless(arch, c["cfgs"][arch], c["params"][arch],
+                            c["batches"][arch])
+    assert got["loss"] == pytest.approx(loss, rel=1e-4, abs=1e-5)
+    assert set(got["grads"]) == set(grads)
+    for k, v in grads.items():
+        np.testing.assert_allclose(got["grads"][k], v, rtol=1e-4, atol=1e-5,
+                                   err_msg=f"{name} {k}")
+    permutes = got["comm"]["calls"].get("collective-permute", 0)
+    assert (permutes > 0) == (kind == "ring"), got["comm"]["calls"]
+
+
+def test_gnn_cell_step_matches_meshless(cases, run4):
+    """One train step of a nequip cell (reduced config, molecule shape of
+    40 nodes and 128 edge slots) on the mesh against `make_train_step` on
+    one device: the loss within the GNN bar, the step counted, and each
+    parameter's AdamW update within 1e-4 of its size (lr 3e-6 at step 1:
+    a flipped gradient sign would move it by 6e-6)."""
+    c = cases["gnn"]
+    cfg = c["cfgs"]["nequip"]
+    params = tree_from_numpy(c["params"]["nequip"], "cpu")
+    state = init_train_state(params, AdamWConfig())
+    step = make_train_step(lambda p, b: (nequip.loss_fn(p, cfg, b), {}),
+                           AdamWConfig(), donate=False)
+    bt = {k: torch.from_numpy(np.asarray(v)) for k, v in
+          c["cell_batch"].items()}
+    new, m = step(state, bt)
+    got = run4["gnn"]["cell"]
+    assert got["step"] == 1
+    assert got["loss"] == pytest.approx(float(m["loss"]), rel=1e-4, abs=1e-5)
+    old = dict(flatten_with_path(params))
+    for k, v in flatten_with_path(new["params"]):
+        want = (v - old[k]).numpy()
+        np.testing.assert_allclose(got["params"][k] - old[k].numpy(), want,
+                                   rtol=1e-4, atol=1e-10, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
 # Process-free: specs against the reference's, mesh-less paths unchanged
 # ---------------------------------------------------------------------------
 LM_ARCHS = sorted(a for a, m in registry.ARCHS.items() if m.FAMILY == "lm")
@@ -855,6 +990,28 @@ def test_meshless_paths_are_unchanged():
                dict(mesh=data_only, model_axis="model")):
         o2, a2 = moe.moe_ffn(x, mp, mcfg, **kw)
         assert torch.equal(o2, out) and torch.equal(a2, aux)
+    # the GNN models: no hooks and no global counts are the calls with
+    # None, with the default hooks and with the batch's own counts
+    from repro_torch.models.gnn.common import scatter_rows, take_rows
+    c = _gnn_input()
+    for arch, m in GNN.items():
+        cfg, b = c["cfgs"][arch], c["batches"][arch]
+        bt = {k: torch.from_numpy(np.asarray(v)) for k, v in b.items()}
+        p = tree_from_numpy(c["params"][arch], "cpu")
+        fwd = m.forward if arch in ("graphcast", "dimenet") else \
+            m.forward_energy
+        count = ({"n_edges": len(b["edge_src"])} if arch == "dimenet" else
+                 {"n_nodes": len(b["node_feat" if arch == "graphcast"
+                                   else "species"])})
+        base = fwd(p, cfg, bt)
+        none = {"gather_fn": None, "scatter_fn": None,
+                **{k: None for k in count}}
+        assert torch.equal(fwd(p, cfg, bt, **none), base), arch
+        assert torch.equal(fwd(p, cfg, bt, gather_fn=take_rows,
+                               scatter_fn=scatter_rows, **count), base), arch
+        if arch != "graphcast":
+            assert torch.equal(m.loss_fn(p, cfg, bt, **none),
+                               m.loss_fn(p, cfg, bt)), arch
 
 
 @pytest.mark.parametrize("mode", ["head", "seq", "seq_all"])
