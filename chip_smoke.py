@@ -286,7 +286,15 @@ check raises and the script exits nonzero:
    the mesh path's kernels: each rank's `l2_topk` and `flash_decode`
    counters must be nonzero (the single-card comparisons' launches not
    counted), every other counter, in each rank and here, 0; mesh C
-   launches none.
+   launches none.  Last in the same spawn, kv heads shared by "model"
+   ranks where tp exceeds n_kv_heads (test-sized configs, `reduced`;
+   `tools/kv_share_check.py` runs h2o-danube-3-4b's widths): (6) one kv
+   head over tp 2 on the (2, 2) mesh, FSDP x TP, remat "full": step 0 in
+   f32 within rtol 1e-4 (loss) and 1e-3 (gradient norm) of one card's,
+   then one `make_train_step` step (a finite loss); (7) a prefill of 2
+   kv heads on a (1, 4) mesh of the same ranks: each rank's logits
+   within rtol / atol 3e-4 of one card's, its cache one card's head
+   m // 2 within the same.
 
 The last lines are the script's time, the card's nvidia-smi line, one JSON
 object with every kernel's numbers, and `{"ok": true, "device": {...}}`.
@@ -2761,7 +2769,113 @@ def _all_ranks(mesh, values) -> list:
     return x.tolist()
 
 
-def _mesh4_rank(mesh, ckpt_dir: str, t_spawn: float, refs_b: dict) -> dict:
+# Phase 14.10-14.11: kv heads shared by "model" ranks where tp exceeds
+# n_kv_heads (models.transformer._kv_head_weights), at the sizes of the
+# CPU test (tests/test_torch_sharded.py's KVREP and DEC; `reduced`); the
+# published widths run in tools/kv_share_check.py
+KV_TRAIN = dict(name="kvrep", n_layers=2, d_model=64, n_heads=8,
+                n_kv_heads=1, d_head=16, d_ff=128, vocab=256, remat="full",
+                loss_chunks=2, dtype="float32")
+KV_PREFILL = dict(KV_TRAIN, name="kvpre", n_kv_heads=2, remat="none")
+KV_B, KV_S = 4, 16
+
+
+def _kv_setup(dev):
+    """(train config, prefill config, f32 parameters of each on dev from
+    SEED, the batch)."""
+    import torch
+
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models.transformer import LMConfig
+
+    cfg, pcfg = LMConfig(**KV_TRAIN), LMConfig(**KV_PREFILL)
+    t, l = lm_batch(0, KV_B, KV_S, cfg.vocab, seed=SEED)
+    batch = {"tokens": torch.from_numpy(t).to(dev),
+             "labels": torch.from_numpy(l).to(dev)}
+    return cfg, pcfg, _lm_params(cfg, dev), _lm_params(pcfg, dev), batch
+
+
+def _kv_refs(dev) -> dict:
+    """One card's f32 step 0 of KV_TRAIN and prefill of KV_PREFILL (the
+    logits and caches on the host)."""
+    import torch
+
+    from repro_torch.models.transformer import lm_loss, serve_prefill
+    from repro_torch.train.trainer import loss_and_grads
+    from repro_torch.utils.tree import global_norm
+
+    cfg, pcfg, params, pparams, batch = _kv_setup(dev)
+    loss, _, g = loss_and_grads(
+        lambda p, b: lm_loss(p, cfg, b["tokens"], b["labels"]), params,
+        batch)
+    with torch.no_grad():
+        logits, (ck, cv), _ = serve_prefill(pparams, pcfg, batch["tokens"])
+    return {"loss": float(loss), "grad_norm": float(global_norm(g)),
+            "logits": logits.cpu(), "ck": ck.cpu(), "cv": cv.cpu()}
+
+
+def _kv_rank(mesh, dev, refs: dict) -> dict:
+    """14.10-14.11 on each rank: KV_TRAIN's step 0 and one train step on
+    the (2, 2) mesh (FSDP over data x TP over model, its one kv head
+    shared by both model ranks), then KV_PREFILL's prefill on a (1, 4)
+    mesh of the same ranks (each of its 2 kv heads shared by 2)."""
+    import torch
+
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.models.transformer import (ShardCtx, lm_loss,
+                                                lm_param_specs,
+                                                serve_prefill)
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import (init_train_state, loss_and_grads,
+                                           make_train_step)
+    from repro_torch.utils import sharding
+    from repro_torch.utils.sharding import shard_tree
+    from repro_torch.utils.tree import global_norm
+
+    t0 = time.perf_counter()
+    cfg, pcfg, params, pparams, batch = _kv_setup(dev)
+    ctx = ShardCtx(mesh=mesh)
+    params = shard_tree(params, lm_param_specs(cfg, ctx, fsdp_axis="data"),
+                        mesh)
+
+    def loss_fn(p, b):
+        return lm_loss(p, cfg, b["tokens"], b["labels"], ctx)
+
+    sharding.comm_log.reset()
+    loss, _, g = loss_and_grads(loss_fn, params, batch)
+    gn = float(global_norm(g))
+    comm = sharding.comm_log.snapshot()
+    del g
+    opt = AdamWConfig(lr=1e-2, warmup_steps=5, total_steps=100)
+    state, m = make_train_step(loss_fn, opt)(init_train_state(params, opt),
+                                             batch)
+    mesh14 = device_mesh((1, 4), ("data", "model"), mesh.device_type)
+    ctx14 = ShardCtx(mesh=mesh14)
+    pparams = shard_tree(pparams, lm_param_specs(pcfg, ctx14), mesh14)
+    with torch.no_grad():
+        logits, (ck, cv), _ = serve_prefill(pparams, pcfg, batch["tokens"],
+                                            ctx=ctx14)
+    me = mesh14.get_local_rank("model")
+    head = slice(me // 2, me // 2 + 1)
+    errs, close = [], True
+    for got, want in ((logits, refs["logits"]),
+                      (ck, refs["ck"][:, :, :, head]),
+                      (cv, refs["cv"][:, :, :, head])):
+        want = want.to(dev)
+        errs.append(float((got - want).abs().max()))
+        close = close and bool(((got - want).abs()
+                                <= SEQ_TOL + SEQ_TOL * want.abs()).all())
+    rows = _all_ranks(mesh, [close, *errs, ck.shape[3]])
+    return {"loss": float(loss), "grad_norm": gn, "comm": comm,
+            "step_loss": float(m["loss"]),
+            "prefill_close": [bool(r[0]) for r in rows],
+            "prefill_err": [r[1:4] for r in rows],
+            "cache_heads": [int(r[4]) for r in rows],
+            "s": time.perf_counter() - t0}
+
+
+def _mesh4_rank(mesh, ckpt_dir: str, t_spawn: float, refs_b: dict,
+                refs_kv: dict) -> dict:
     """Phase 14 on each of the 4 ranks of a (2, 2) mesh: OLMo-1B (step 0
     in f32, then MESH_STEPS bf16 steps, a save), DIN's lookup, loss and
     retrieval shortlist, the compressed DP step on a (4,) mesh, then mesh
@@ -2932,6 +3046,9 @@ def _mesh4_rank(mesh, ckpt_dir: str, t_spawn: float, refs_b: dict) -> dict:
                 held_gib=[r[9] for r in rows])
     out["c"] = {"ring": ring, "gnn": gnn, "ring_s": t_ring, "gnn_s": t_gnn,
                 "launched": [int(r[10]) for r in rows if r[10]]}
+
+    # 14.10-14.11: kv heads shared where tp exceeds n_kv_heads
+    out["kv"] = _kv_rank(mesh, dev, refs_kv)
     out["launches"] = _all_ranks(mesh, [n - c for n, c in
                                         zip(counts(), compared)])
     return out
@@ -3820,13 +3937,15 @@ def mesh_training(dev, card, reset_counts, read_counts) -> dict:
     # path's)
     refs_b = _mesh_b_refs(dev)
     refs_c = _gnn_mesh_refs(dev)
+    refs_kv = _kv_refs(dev)
     reset_counts()
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=root) as rdv:
         r4 = run_ranks(_mesh4_rank, (2, 2), device=dev.type,
                        init_method=f"file://{rdv}/init", args=(
-                           str(root / "ckpt"), time.time(), refs_b),
+                           str(root / "ckpt"), time.time(), refs_b,
+                           refs_kv),
                        timeout=400, threads=2)
     t4 = time.perf_counter() - t0
     gb = (root / "ckpt" / f"ckpt_{MESH_STEPS:08d}.npz").stat().st_size / 1e9
@@ -3878,6 +3997,7 @@ def mesh_training(dev, card, reset_counts, read_counts) -> dict:
                              f"{dp['loss_ref']}: not within 0.05")
     _mesh_b_checks(r4["b"], refs_b)
     _mesh_c_checks(r4["c"], refs_c)
+    _kv_checks(r4["kv"], refs_kv)
     ranks = [dict(zip(kernel_counters(), map(int, row)))
              for row in r4["launches"]]
     # the mesh paths that reach a kernel: the sharded shortlist (l2_topk)
@@ -3949,8 +4069,40 @@ def mesh_training(dev, card, reset_counts, read_counts) -> dict:
         f"{r4['c']['gnn_s']:.1f} s on rank 0, one-card references "
         + ", ".join(f"{a} {v['s']:.1f} s" for a, v in refs_c.items())
         + f"; kernel launches over both: none | {card}")
+    kv = r4["kv"]
+    log(f"mesh kv sharing: 1 kv head over tp 2, (2, 2) FSDP x TP, "
+        f"{KV_TRAIN['n_layers']} layers, d {KV_TRAIN['d_model']} (reduced): "
+        f"f32 step 0 loss {kv['loss']:.6f} vs one card "
+        f"{refs_kv['loss']:.6f}, grad norm {kv['grad_norm']:.6f} vs "
+        f"{refs_kv['grad_norm']:.6f}, collectives on rank 0: "
+        f"{_comm(kv['comm'])}; train step loss {kv['step_loss']:.4f} | "
+        f"2 kv heads over tp 4 on a (1, 4) mesh: prefill logits, k and v "
+        f"cache max |mesh - card| by rank "
+        + "; ".join(", ".join(f"{e:.3g}" for e in r)
+                    for r in kv["prefill_err"])
+        + f" (rtol / atol {SEQ_TOL}), cache heads a rank "
+        f"{kv['cache_heads']} | {kv['s']:.1f} s on rank 0 | {card}")
     log(f"phase 14 took {time.perf_counter() - t_phase:.1f} s | {card}")
     return {"ranks": ranks, "parent": parent}
+
+
+def _kv_checks(kv: dict, refs: dict) -> None:
+    """Phase 14.10-14.11's checks on rank 0's report."""
+    if abs(kv["loss"] - refs["loss"]) > 1e-4 * abs(refs["loss"]) \
+            or abs(kv["grad_norm"] - refs["grad_norm"]) \
+            > 1e-3 * refs["grad_norm"]:
+        raise AssertionError(f"kv heads shared over tp 2: f32 step 0 loss "
+                             f"{kv['loss']} vs {refs['loss']} (rtol 1e-4), "
+                             f"grad norm {kv['grad_norm']} vs "
+                             f"{refs['grad_norm']} (rtol 1e-3)")
+    if not math.isfinite(kv["step_loss"]):
+        raise AssertionError(f"kv heads shared: train step loss "
+                             f"{kv['step_loss']}")
+    if not all(kv["prefill_close"]) or set(kv["cache_heads"]) != {1}:
+        raise AssertionError(f"kv heads shared over tp 4: prefill logits / "
+                             f"k / v by rank {kv['prefill_err']} beyond "
+                             f"rtol / atol {SEQ_TOL} of one card's head "
+                             f"m // 2, cache heads {kv['cache_heads']}")
 
 
 def _mesh_b_checks(b: dict, refs: dict) -> None:

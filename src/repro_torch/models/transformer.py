@@ -35,7 +35,10 @@ unchanged.  Under a `DeviceMesh` ("data", "model") every rank runs them
 on its blocks: the batch's rows over the batch axes, Megatron tensor
 parallelism over "model" (column-parallel wq / wk / wv / w_gate / w_in
 and head, row-parallel wo / w_out, each rank with n_heads / tp query and
-n_kv_heads / tp kv heads), the vocab-parallel embedding (a masked local
+n_kv_heads / tp kv heads; where tp > n_kv_heads, f = tp / n_kv_heads
+ranks share a kv head: each stores d_head / f of its wk / wv columns,
+as the reference's specs lay them out, and gathers the head's to compute
+with), the vocab-parallel embedding (a masked local
 take plus a sum over "model") and a vocab-parallel loss
 (`softmax_xent_chunked`'s `vocab_shard`).  Parameters are
 `utils.sharding` leaves laid out by `lm_param_specs`: a weight FSDP-
@@ -454,14 +457,46 @@ def _from_model(y, ctx):
     return y if _tp(ctx) == 1 else reduce_from(y, ctx.mesh, ctx.model_axis)
 
 
+def _kv_share(cfg: LMConfig, ctx) -> int:
+    """f, the "model" ranks that share one kv head: tp / n_kv_heads where
+    tp > n_kv_heads (`_check_tp`), else 1."""
+    tp = _tp(ctx)
+    return tp // cfg.n_kv_heads if tp > cfg.n_kv_heads else 1
+
+
+def _kv_local(cfg: LMConfig, ctx) -> int:
+    """The kv heads a rank computes with: n_kv_heads / tp, or the one
+    head it shares with f - 1 other ranks."""
+    return max(1, cfg.n_kv_heads // _tp(ctx))
+
+
+def _kv_head_weights(wk, wv, cfg: LMConfig, ctx):
+    """(d, d_head) columns of wk and wv for this rank's kv head m // f,
+    where f ranks share each head and each stores d_head / f of its
+    columns (the reference's layout, `lm_param_specs`): both blocks
+    gathered over "model" in one collective, then narrowed.  The gather's
+    backward is the reduce-scatter, so each stored block gets the sum of
+    the gradients of the f ranks that computed with its head.  It moves
+    the whole (2, d, kv_dim) pair to every rank (no sub-axis of f ranks):
+    at h2o-danube-3-4b's tp 16, 14.7 MB a layer in bf16."""
+    m = ctx.mesh.get_local_rank(ctx.model_axis)
+    both = sharding.gather_view(torch.stack([wk, wv]), ctx.mesh,
+                                ctx.model_axis, 2)
+    both = both.narrow(2, (m // _kv_share(cfg, ctx)) * cfg.d_head,
+                       cfg.d_head)
+    return both[0], both[1]
+
+
 def _attn_qkv(x, lp, cfg: LMConfig, positions, ctx=None):
     b, s, _ = x.shape
-    tp = _tp(ctx)
-    hq, hkv = cfg.n_heads // tp, cfg.n_kv_heads // tp
+    hq, hkv = cfg.n_heads // _tp(ctx), _kv_local(cfg, ctx)
     h = _to_model(apply_norm(cfg.norm, x, lp["attn_norm"]), ctx)
+    wk, wv = lp["wk"].to(h.dtype), lp["wv"].to(h.dtype)
+    if _kv_share(cfg, ctx) > 1:
+        wk, wv = _kv_head_weights(wk, wv, cfg, ctx)
     q = (h @ lp["wq"].to(h.dtype)).reshape(b, s, hq, cfg.d_head)
-    k = (h @ lp["wk"].to(h.dtype)).reshape(b, s, hkv, cfg.d_head)
-    v = (h @ lp["wv"].to(h.dtype)).reshape(b, s, hkv, cfg.d_head)
+    k = (h @ wk).reshape(b, s, hkv, cfg.d_head)
+    v = (h @ wv).reshape(b, s, hkv, cfg.d_head)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -573,11 +608,19 @@ def _layer_scan(layers: list[dict], carry, cfg: LMConfig, step_fn):
 
 
 def _check_tp(cfg: LMConfig, ctx: ShardCtx) -> None:
-    """Tensor parallelism here keeps whole heads on a rank."""
+    """Tensor parallelism here keeps whole query heads on a rank, and
+    whole kv heads where tp divides n_kv_heads; where n_kv_heads divides
+    tp instead, each kv head is shared by f = tp / n_kv_heads ranks, each
+    storing d_head / f of its columns (`_kv_head_weights`)."""
     tp = ctx.tp
-    for what, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
-                    ("vocab", cfg.vocab), ("d_ff", cfg.d_ff or tp)):
+    for what, n in (("n_heads", cfg.n_heads), ("vocab", cfg.vocab),
+                    ("d_ff", cfg.d_ff or tp)):
         sharding.check_divisible(n, tp, what)
+    nkv = cfg.n_kv_heads
+    if nkv % tp and (tp % nkv or cfg.d_head % (tp // nkv)):
+        raise ValueError(f"n_kv_heads={nkv} neither divisible by mesh factor "
+                         f"{tp} nor shared by it (d_head={cfg.d_head} over "
+                         f"tp / n_kv_heads ranks)")
 
 
 def forward_hidden(params, cfg: LMConfig, tokens,
@@ -720,7 +763,10 @@ def serve_prefill(params, cfg: LMConfig, tokens,
     after wraparound.  Under a mesh, tokens are the global batch (the
     same on every rank); the logits come back whole on every rank and
     the caches and lengths as this rank's "head" block (its batch rows,
-    its kv heads)."""
+    its kv heads).  Where f = tp / n_kv_heads ranks share a kv head
+    (`_check_tp`), each rank's cache is its head m // f, (L, B_local,
+    S_c, 1, Dh), the same block on the f ranks that share it; "head"
+    decode does not take such a cache (the cells serve it under "seq")."""
     dev = params["embed"].device
     tokens = to_device(tokens, dev)
     split = False
@@ -732,7 +778,7 @@ def serve_prefill(params, cfg: LMConfig, tokens,
     sc = cache_len_for(cfg, s)
     embed, final_norm, layers = _serve_weights(params, cfg, ctx)
     positions = torch.arange(s, device=dev)[None].expand(b, s)
-    ck = torch.empty((cfg.n_layers, b, sc, cfg.n_kv_heads // _tp(ctx),
+    ck = torch.empty((cfg.n_layers, b, sc, _kv_local(cfg, ctx),
                       cfg.d_head), dtype=cfg.compute_dtype, device=dev)
     cv = torch.empty_like(ck)
     with f32_matmul():
@@ -834,6 +880,10 @@ def decode_step(params, cfg: LMConfig, tokens, positions, caches,
     seq_axes, split, sc = (), False, ck_all.shape[2]
     if kv_mode == "head":
         _check_tp(cfg, ctx)
+        if cfg.n_kv_heads % ctx.tp:
+            raise ValueError(f"kv_mode 'head' keeps whole kv heads on a rank: "
+                             f"n_kv_heads={cfg.n_kv_heads} not divisible by "
+                             f"mesh factor {ctx.tp}; use kv_mode 'seq'")
     elif kv_mode in ("seq", "seq_all"):
         for what, n in (("vocab", cfg.vocab), ("q_dim", cfg.q_dim),
                         ("kv_dim", cfg.kv_dim), ("d_ff", cfg.d_ff or ctx.tp)):

@@ -107,9 +107,13 @@ def lm_case(mesh, case) -> dict:
     cfg, ctx, opt, _, state = _lm_state(mesh, case)
     loss_fn = _lm_loss_fn(cfg, ctx)
     b0 = _batch(case["batches"][0])
+    before = dict(sharding.comm_log.calls)
     loss, _, g = loss_and_grads(loss_fn, state["params"], b0)
+    calls = {k: v - before.get(k, 0)
+             for k, v in sharding.comm_log.calls.items()
+             if v > before.get(k, 0)}
     out = {"loss": float(loss), "grads": _full(g),
-           "layout": _layout(state)}
+           "layout": _layout(state), "calls": calls}
     step = make_train_step(loss_fn, opt)
     losses = []
     for b in case["batches"][:case["steps"]]:
@@ -263,6 +267,17 @@ def decode_case(mesh, case) -> dict:
                       "ck": _from_blocks(ck, mesh, spec[0], full),
                       "cv": _from_blocks(cv, mesh, spec[1], full),
                       "lengths": _from_blocks(ln, mesh, spec[2], (b,))}
+    # on a (1, 4) mesh tp 4 exceeds the 2 kv heads: each rank returns the
+    # cache of the head it shares with one other rank
+    m = meshes.get((1, 4)) or device_mesh((1, 4), ("data", "model"), "cpu")
+    cfg, ctx, params = _serve_state(m, case)
+    with torch.no_grad():
+        logits, (ck, cv), ln = serve_prefill(
+            params, cfg, torch.as_tensor(case["tokens"]), ctx=ctx)
+    out["prefill_shared"] = {"logits": _every_rank(logits, mesh),
+                             "ck": _every_rank(ck, mesh),
+                             "cv": _every_rank(cv, mesh),
+                             "lengths": _every_rank(ln, mesh)}
     return out
 
 
@@ -403,7 +418,7 @@ def gnn_case(mesh, case) -> dict:
 def mesh4(mesh, cases: dict) -> dict:
     """Every case of the 4-rank run, on this (2, 2) mesh."""
     out = {"coordinate": tuple(mesh.get_coordinate())}
-    for name in ("tp", "fsdp", "zero1", "moe"):
+    for name in ("tp", "fsdp", "zero1", "moe", "kvrep"):
         out[name] = lm_case(mesh, cases[name])
     out["lookup"] = lookup_case(mesh, cases["lookup"])
     out["din"] = din_case(mesh, cases["din"])

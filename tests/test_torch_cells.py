@@ -11,8 +11,9 @@ the reference's `NamedSharding` is replaced by its spec, and its
 one `jax.eval_shape` of the real one a config (a MoE init traces for
 5-12 s, and the reference traces it up to eight times a cell).  Then the op counter on the reference's scanned
 matmul (tests/test_data_pipeline.py), the roofline's arithmetic with the
-H100 constants, the production meshes on a fake group, and two reduced
-cells dry-run on a fake (2, 2) mesh.
+H100 constants, the production meshes on a fake group, three reduced
+cells dry-run on a fake (2, 2) mesh, and h2o-danube-3-4b's train and
+prefill cells on a fake (1, 4) mesh, where its kv heads are shared.
 """
 import dataclasses
 import functools
@@ -232,6 +233,42 @@ def test_dry_run_small_cell(small_cells, shape):
     else:
         mode = "seq_all" if shape == "long_500k" else "head"
         assert rec["comment"].startswith(f"kv_mode={mode}")
+
+
+# h2o-danube-3-4b's reduced config has 2 kv heads: on a (1, 4) mesh each
+# is shared by 2 model ranks, as its 8 are by 16 on the production meshes
+SHARED = {"train_4k": dict(seq_len=64, global_batch=8),
+          "prefill_32k": dict(seq_len=128, global_batch=8)}
+
+
+@pytest.mark.parametrize("shape", list(SHARED))
+def test_dry_run_kv_heads_shared(monkeypatch, shape):
+    """h2o-danube-3-4b's train and prefill cells where tp exceeds its kv
+    heads (reduced config, small shapes, a fake (1, 4) group): the cell
+    runs, and each layer gathers its wk / wv pair over "model" once a
+    forward (the data axis, of size 1, gathers nothing): in training
+    once a layer and micro-batch, each gather's backward a
+    reduce-scatter; in prefill once a layer, beside the logits' gather."""
+    arch = "h2o-danube-3-4b"
+    mod = registry.get_arch(arch)
+    monkeypatch.setattr(mod, "model_config",
+                        functools.partial(mod.model_config, reduced=True))
+    monkeypatch.setitem(mod.SHAPES, shape, dataclasses.replace(
+        mod.SHAPES[shape], **SHARED[shape]))
+    cfg = mod.model_config()
+    assert cfg.n_kv_heads == 2
+    with dryrun.fake_group(4):
+        mesh = device_mesh((1, 4), ("data", "model"), "cpu")
+        rec = dryrun.run_cell(arch, shape, mesh, "small")
+    assert rec["n_devices"] == 4 and rec["mem"]["fits_hbm"]
+    assert rec["roofline"]["t_bound_s"] > 0
+    calls = rec["comm"]["calls"]
+    if shape == "train_4k":
+        n = cfg.n_layers * mod.TRAIN_ACCUM
+        assert calls["all_gather"] == calls["reduce_scatter"] == n
+    else:
+        assert calls["all_gather"] == cfg.n_layers + 1
+        assert "reduce_scatter" not in calls
 
 
 def test_gnn_gates_are_the_reference_values():

@@ -1,6 +1,6 @@
-"""The port, `chip_smoke.py` and the kernel harnesses in `tools/` stand
-alone: none imports jax or the JAX package `repro`, so they run on a
-machine that has neither."""
+"""The port, `chip_smoke.py`, the harnesses in `tools/` and the examples
+in `examples_torch/` stand alone: none imports jax or the JAX package
+`repro`, so they run on a machine that has neither."""
 import pkgutil
 import re
 import subprocess
@@ -12,6 +12,7 @@ import repro_torch
 ROOT = Path(__file__).resolve().parents[1]
 PKG = Path(repro_torch.__file__).resolve().parent
 SMOKE = ROOT / "chip_smoke.py"
+EXAMPLES = sorted(str(p) for p in (ROOT / "examples_torch").glob("*.py"))
 # `import jax...`, `from jax...`, `import repro` / `from repro.x` -- not
 # repro_torch
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
@@ -25,8 +26,14 @@ def _modules():
 
 def test_sources_import_no_jax_and_no_repro():
     files = (sorted(PKG.rglob("*.py")) + [SMOKE]
-             + sorted((ROOT / "tools").glob("*.py")))
+             + sorted((ROOT / "tools").glob("*.py"))
+             + sorted((ROOT / "examples_torch").glob("*.py")))
     assert len(files) > 10
+    names = {p.relative_to(ROOT).as_posix() for p in files}
+    assert {"tools/kv_share_check.py", "examples_torch/quickstart.py",
+            "examples_torch/serve_ann.py", "examples_torch/din_retrieval.py",
+            "examples_torch/fresh_serving.py",
+            "examples_torch/train_lm.py"} <= names
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())
         assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
@@ -92,6 +99,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
         f"for m in {mods!r}:",
         "    importlib.import_module(m)",
         "importlib.import_module('chip_smoke')",
+        f"for f in {EXAMPLES!r}:",
+        "    runpy.run_path(f, run_name='example')",
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))",
         "               for k in sys.modules if sys.modules[k] is not None)",
         "print('ok')",

@@ -29,6 +29,14 @@ rank's output (1e-5 / 1e-6) and dropped slots against the reference's
 own sharded body `_moe_local`, run under `jax.vmap(axis_name="model")`
 in this process (its slots drop where one device's would not).
 
+kv heads shared by "model" ranks where tp exceeds n_kv_heads, in the
+same spawn: `kvrep` (the FSDP case with 1 kv head, so tp 2 shares it)
+in the loss, gradient and train-step tests at their bars, with its
+wk / wv gather counted once a layer forward and again in the
+checkpointed recompute; and a prefill of the decode model's 2 kv heads
+on a (1, 4) mesh: each rank's logits at the LM bar, its cache the
+reference's head m // 2.
+
 Then process-free cases: the port's spec helpers give the reference's
 `PartitionSpec`s leaf by leaf (every LM config of the registry, reduced,
 with `fsdp_axis` and ZeRO-1; DIN; `cache_specs` in each mode), on mesh
@@ -78,6 +86,10 @@ TP = dict(name="tp", n_layers=2, d_model=64, n_heads=8, n_kv_heads=4,
           d_head=16, d_ff=128, vocab=256, remat="none", loss_chunks=2,
           dtype="float32")
 FSDP = dict(TP, name="f", remat="full")
+# tp 2 over 1 kv head: each model rank stores half of the head's columns
+# and computes with the whole head, as h2o-danube-3-4b's 16 ranks share
+# its 8 kv heads on the production meshes
+KVREP = dict(FSDP, name="k", n_kv_heads=1)
 DP = dict(name="c", n_layers=2, d_model=32, n_heads=4, n_kv_heads=2,
           d_head=8, d_ff=64, vocab=64, remat="none", loss_chunks=2,
           dtype="float32")
@@ -295,6 +307,7 @@ def cases(tmp_path_factory):
                            0, 64, (4, 5)).astype(np.int32)},
             "din": _din_input(), "dp": _dp_input(),
             "moe": _lm_input(MOE, seed=1, steps=0), "decode": _decode_input(),
+            "kvrep": _lm_input(KVREP, fsdp="data", seed=4),
             "moe_drop": _moe_drop_input(), "moe_grad": _moe_grad_input(),
             "ring": ring_reference(d / "ring.npz"), "gnn": _gnn_input()}
 
@@ -370,7 +383,7 @@ def _jsteps_of(case):
 # ---------------------------------------------------------------------------
 # Sharded runs against the reference
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("name", ["tp", "fsdp", "zero1"])
+@pytest.mark.parametrize("name", ["tp", "fsdp", "zero1", "kvrep"])
 def test_sharded_loss_matches_unsharded_reference(cases, run4, name):
     """tests/test_sharded.py:43 (dense TP) and :57 (FSDP, remat full)."""
     case = cases[name]
@@ -378,7 +391,7 @@ def test_sharded_loss_matches_unsharded_reference(cases, run4, name):
                                _jloss(case, case["batches"][0]), rtol=2e-5)
 
 
-@pytest.mark.parametrize("name", ["tp", "fsdp"])
+@pytest.mark.parametrize("name", ["tp", "fsdp", "kvrep"])
 def test_sharded_grads_match_unsharded_reference(cases, run4, name):
     want = _jgrads(cases[name])
     got = run4[name]["grads"]
@@ -388,7 +401,7 @@ def test_sharded_grads_match_unsharded_reference(cases, run4, name):
                                    err_msg=k)
 
 
-@pytest.mark.parametrize("name", ["tp", "fsdp", "zero1"])
+@pytest.mark.parametrize("name", ["tp", "fsdp", "zero1", "kvrep"])
 def test_sharded_train_steps_match_reference(cases, run4, name):
     """`make_train_step` run as it is on the sharded leaves (in place):
     each step's loss within rtol 1e-4 of the reference's (as
@@ -579,6 +592,44 @@ def test_sharded_prefill_matches_reference(cases, run4):
     np.testing.assert_allclose(got["ck"], ck, rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(got["cv"], cv, rtol=1e-4, atol=1e-5)
     np.testing.assert_array_equal(got["lengths"], ln)
+
+
+def test_sharded_prefill_shares_kv_heads(cases, run4):
+    """`serve_prefill(ctx=)` on a (1, 4) mesh, where tp 4 exceeds the 2
+    kv heads: every rank's logits within the LM bar of the reference's
+    single-device prefill, and rank m's cache the reference's kv head
+    m // 2 (one head a rank, the same on the 2 ranks that share it)."""
+    lg, ck, cv, ln = cases["decode"]["jprefill"]
+    got = run4["decode"]["prefill_shared"]
+    for r in range(4):
+        np.testing.assert_allclose(got["logits"][r], lg, rtol=1e-4,
+                                   atol=1e-5, err_msg=f"rank {r}")
+        head = slice(r // 2, r // 2 + 1)
+        np.testing.assert_allclose(got["ck"][r], ck[:, :, :, head],
+                                   rtol=1e-4, atol=1e-5, err_msg=f"rank {r}")
+        np.testing.assert_allclose(got["cv"][r], cv[:, :, :, head],
+                                   rtol=1e-4, atol=1e-5, err_msg=f"rank {r}")
+        np.testing.assert_array_equal(got["lengths"][r], ln)
+
+
+def test_kv_heads_shared_layout_and_gather(run4):
+    """kvrep's wk / wv keep the reference's storage (half of the one kv
+    head's 16 columns a model rank, half the layers over data), and, on
+    top of the fsdp case's collectives (the same config but for its 4 kv
+    heads), its loss and gradients gather the pair over "model" once a
+    layer in the forward and again in the checkpointed recompute, and
+    reduce-scatter its gradient once a layer."""
+    lay = run4["kvrep"]["layout"]
+    assert lay["['params']['layers']['wk']"][0] == (1, 64, 8)
+    assert lay["['params']['layers']['wv']"][0] == (1, 64, 8)
+    got, base = run4["kvrep"]["calls"], run4["fsdp"]["calls"]
+    n = KVREP["n_layers"]
+    assert got["all_gather"] - base.get("all_gather", 0) == 2 * n
+    assert got["reduce_scatter"] - base.get("reduce_scatter", 0) == n
+    assert {k: v for k, v in got.items()
+            if k not in ("all_gather", "reduce_scatter")} == {
+        k: v for k, v in base.items()
+        if k not in ("all_gather", "reduce_scatter")}
 
 
 def test_moe_sharded_loss_and_grads_match_reference(cases, run4):
@@ -1012,6 +1063,42 @@ def test_meshless_paths_are_unchanged():
         if arch != "graphcast":
             assert torch.equal(m.loss_fn(p, cfg, bt, **none),
                                m.loss_fn(p, cfg, bt)), arch
+
+
+@pytest.mark.parametrize("kv,d_head,tp,ok", [
+    (2, 16, 4, True),       # each kv head shared by 2 ranks, 8 columns
+    (1, 16, 8, True),       # one head shared by 8 ranks, 2 columns each
+    (4, 16, 2, True),       # 2 whole heads a rank
+    (3, 16, 4, False),      # neither divides
+    (1, 4, 8, False),       # 8 ranks cannot split d_head 4
+])
+def test_check_tp_shares_kv_heads(kv, d_head, tp, ok):
+    """Tensor parallelism takes tp dividing n_kv_heads (whole heads a
+    rank) or n_kv_heads dividing tp with d_head split evenly over the
+    tp / n_kv_heads ranks that share a head; else it raises."""
+    pm, _ = _meshes((1, tp))
+    cfg = tf.LMConfig(**dict(DEC, n_heads=8, n_kv_heads=kv, d_head=d_head))
+    ctx = tf.ShardCtx(mesh=pm)
+    if ok:
+        tf._check_tp(cfg, ctx)
+        assert tf._kv_local(cfg, ctx) == max(1, kv // tp)
+        assert tf._kv_share(cfg, ctx) == max(1, tp // kv)
+    else:
+        with pytest.raises(ValueError, match="n_kv_heads"):
+            tf._check_tp(cfg, ctx)
+
+
+def test_head_decode_refuses_shared_kv_heads():
+    """"head" decode keeps whole kv heads on a rank: where tp exceeds
+    n_kv_heads it raises and names "seq", the mode the cells take."""
+    pm, _ = _meshes((1, 4))
+    cfg = tf.LMConfig(**DEC)
+    ck = torch.zeros(2, 4, 8, 1, 16)
+    with pytest.raises(ValueError, match="'seq'"):
+        tf.decode_step(None, cfg, torch.zeros(4, 1, dtype=torch.int32),
+                       torch.zeros(4, dtype=torch.int32),
+                       (ck, ck.clone(), torch.zeros(4, dtype=torch.int32)),
+                       "head", ctx=tf.ShardCtx(mesh=pm))
 
 
 @pytest.mark.parametrize("mode", ["head", "seq", "seq_all"])
